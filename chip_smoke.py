@@ -6,18 +6,29 @@ Phases, each of which raises on failure (the script then exits non-zero and
 prints no result line):
 
  1. device: the card's name and power limit (nvidia-smi), and torch's view.
- 2. build: compile the hand-written kernels (hipie_torch/csrc/*.cu) for sm_90a
-    and print nvcc's register and shared-memory report.
- 3. kernels: every kernel of the serving path against its plain PyTorch version
-    on the card at the path's shapes, with max errors, tolerances and times
-    (CUDA events).
+ 2. build: compile the hand-written kernels (hipie_torch/csrc/*.cu) for sm_90a,
+    one nvcc per source in parallel, and print nvcc's register and
+    shared-memory report.
+ 3. kernels: every kernel of the serving paths against its plain PyTorch
+    version on the card at the paths' shapes, with max errors, tolerances and
+    times (CUDA events); and the ``flat4`` MSDA formulation (K-C) against the
+    fused one (K-B) at the R50 encoder shape.
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
-    the same weights run on the CPU through the plain versions.
+    the same weights run on the CPU through the plain versions, once with
+    fused MSDA and once with ``flat4``.
  5. serve: HIPIEModel for vit_huge_coco_panoptic() at full width in bf16,
     random weights from a seeded torch.Generator; the 256-token class prompt is
     encoded once, then 3 distinct 1024x1024 uint8 images are answered through
     HIPIEModel.forward(..., lang_hidden=...) and hipie_inference. The kernels'
     launch counts over those requests must be exactly the path's.
+ 6. predict: HIPIEPredictor over HIPIEModel(r50_coco_panoptic()) at full width
+    in bf16 with seeded random weights and the toy tokenizer over the COCO
+    panoptic words, on distinct 480x640 uint8 images (resized to 800x1067,
+    padded to the 800x1216 bucket): 2 panoptic calls with the 133 labels, 1
+    grounding call, 1 PartSegmDemo panoptic + parts call (exact K-B counts),
+    then the panoptic call through a second model with msda_method="flat4"
+    and the same weights (exact K-C counts); then one f32 request through both
+    methods, compared before any top-k.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -37,6 +48,12 @@ SEED = 0
 N_REQUESTS = 3
 IMG = 1024
 N_CLASSES = 133                   # COCO panoptic: 80 things + 53 stuff
+# R50 path: 480x640 images -> 800x1067, padded to the 800x1216 bucket. Levels
+# at strides 8, 16, 32 and the extra stride-64 map (13x19 from 25x38).
+R50_IMAGE = (480, 640)
+R50_BUCKET = (800, 1216)
+R50_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
+R50_S = sum(h * w for h, w in R50_LEVELS)          # 20197 encoder queries
 
 
 def log(*a):
@@ -146,8 +163,88 @@ def phase_kernels(dev):
                     "ms": ms, "plain_ms": plain_ms}
     msda["max_abs_err"] = max_err
     records.append(msda)
+    records.append(_check_msda_reduce(dev))
+    _check_flat4(dev, rng)
     kernels.reset_launch_counts()      # launches made for comparison do not count
     return records
+
+
+def _check_msda_reduce(dev):
+    """K-C at the R50 path's row counts: encoder (Q = 20197), decoder (910) and
+    MaskDINO decoder (300) queries x 8 heads x K = 16 samples, 4d = 128."""
+    from hipie_torch.ops.msda_reduce import (msda_weighted_segment_sum,
+                                             msda_weighted_segment_sum_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k, fd = 16, 128
+    rec, max_err = None, 0.0
+    for qn, dtype in ((R50_S, torch.bfloat16), (R50_S, torch.float32), (910, torch.bfloat16),
+                      (300, torch.bfloat16)):
+        n = qn * 8 * k
+        g = torch.randn(n, fd, generator=gen, device=dev).to(dtype)
+        cw = torch.rand(n, 4, generator=gen, device=dev).to(dtype)
+        got = msda_weighted_segment_sum(g, cw, k)
+        want = msda_weighted_segment_sum_plain(g, cw, k)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = 1e-5 * scale          # same values, f32 sums: summation order only
+        ms = cuda_time_ms(lambda: msda_weighted_segment_sum(g, cw, k), 10)
+        plain_ms = cuda_time_ms(lambda: msda_weighted_segment_sum_plain(g, cw, k), 5)
+        log(f"[kernels] msda_reduce N={n} K={k} 4d={fd} {str(dtype)[6:]}: max abs err {err:.3e} "
+            f"(output scale {scale:.3e}, tol {tol:.3e}), kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms")
+        if not err <= tol:
+            raise AssertionError(f"msda_reduce disagrees with its plain version: {err} > {tol}")
+        max_err = max(max_err, err)
+        if rec is None:           # the record carries the encoder bf16 shape's times
+            rec = {"name": "msda_reduce", "route": "cuda",
+                   "source": "hipie_torch/csrc/msda_reduce.cu",
+                   "replaces": "hipie_tpu/ops/pallas/msda_reduce_kernel.py:88",
+                   "ms": ms, "plain_ms": plain_ms}
+        del g, cw, got, want
+    rec["max_abs_err"] = max_err
+    return rec
+
+
+def _check_flat4(dev, rng):
+    """ms_deform_attn(method="flat4") (gather + K-C) against "fused" (K-B) at the
+    R50 encoder shape, S = Q = 20197, 8 heads x 32, 4 levels x 4 points."""
+    from hipie_torch import kernels
+    from hipie_torch.ops.ms_deform_attn import ms_deform_attn
+
+    shapes, s = R50_LEVELS, R50_S
+    m, d, n_levels, p = 8, 32, 4, 4
+    loc = torch.from_numpy(rng.uniform(-0.05, 1.05, (1, s, m, n_levels, p, 2))
+                           .astype(np.float32)).to(dev)
+    w = rng.uniform(0, 1, (1, s, m, n_levels, p)).astype(np.float32)
+    w = torch.from_numpy(w / w.sum(axis=(-1, -2), keepdims=True)).to(dev)
+    value32 = torch.from_numpy(rng.randn(1, s, m, d).astype(np.float32)).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        value = value32.to(dtype)
+        before = dict(kernels.LAUNCHES)
+        got = ms_deform_attn(value, shapes, loc, w, method="flat4")
+        if (kernels.LAUNCHES["msda_reduce"] != before["msda_reduce"] + 1
+                or kernels.LAUNCHES["ms_deform_attn"] != before["ms_deform_attn"]):
+            raise AssertionError("flat4 did not go through K-C alone")
+        want = ms_deform_attn(value, shapes, loc, w, method="fused")
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        vmax, omax = value.float().abs().max().item(), want.float().abs().max().item()
+        if dtype == torch.float32:
+            tol = 1e-5        # the same f32 samples, summed in another order
+        else:
+            # flat4 rounds each corner weight to bf16 (2^-9 relative); a (query,
+            # head)'s weights sum to <= 1, so that part is <= 2^-9 max|value|;
+            # then each side rounds its output to bf16 (2^-9 of it, each).
+            tol = 2 ** -9 * (vmax + 2 * omax)
+        flat4_ms = cuda_time_ms(lambda: ms_deform_attn(value, shapes, loc, w, method="flat4"), 10)
+        fused_ms = cuda_time_ms(lambda: ms_deform_attn(value, shapes, loc, w, method="fused"), 10)
+        log(f"[kernels] ms_deform_attn flat4 vs fused Q=S={s} M={m} D={d} L={n_levels} P={p} "
+            f"{str(dtype)[6:]}: max abs err {err:.3e} (tol {tol:.3e}), flat4 {flat4_ms:.3f} ms, "
+            f"fused {fused_ms:.3f} ms")
+        if not err <= tol:
+            raise AssertionError(f"flat4 disagrees with fused MSDA: {err} > {tol}")
 
 
 def _tiny_config():
@@ -175,19 +272,27 @@ def phase_reference(dev):
             torch.zeros(1, 128, 128, dtype=torch.bool),
             torch.from_numpy(rng.randint(0, cfg.model.text.vocab_size, (1, L))),
             torch.ones(1, L, dtype=torch.long), torch.tensor([[128, 128]]))
-    with torch.inference_mode():
-        ref = model(*args)
-        model.to(dev)
-        before = kernels.LAUNCHES["ms_deform_attn"]
-        out = model(*(a.to(dev) for a in args))
-        torch.cuda.synchronize()
-    if kernels.LAUNCHES["ms_deform_attn"] == before:
-        raise AssertionError("the reference run did not reach the MSDA kernel")
-    for key, tol in (("memory", 1e-4), ("enc_outputs_class", 1e-4)):
-        err = (out[key].float().cpu() - ref[key].float()).abs().max().item()
-        log(f"[reference] tiny slice f32 {key}: card vs CPU max abs err {err:.3e} (tol {tol})")
-        if not err <= tol:
-            raise AssertionError(f"tiny slice {key} on the card disagrees with the CPU: {err}")
+    for method, kernel in (("fused", "ms_deform_attn"), ("flat4", "msda_reduce")):
+        m = HIPIEModel(cfg.model, msda_method=method).eval()
+        m.load_state_dict(model.state_dict(), strict=True)
+        with torch.inference_mode():
+            ref = m(*args)
+            m.to(dev)
+            kernels.reset_launch_counts()
+            out = m(*(a.to(dev) for a in args))
+            torch.cuda.synchronize()
+        n_msda = sum(1 for mod in m.modules() if type(mod).__name__ == "MSDeformAttn")
+        if kernels.LAUNCHES[kernel] != n_msda or sum(kernels.LAUNCHES.values()) != n_msda:
+            raise AssertionError(f"the {method} reference run launched {kernels.LAUNCHES}, "
+                                 f"expected {n_msda} of {kernel} alone")
+        for key, tol in (("memory", 1e-4), ("enc_outputs_class", 1e-4)):
+            err = (out[key].float().cpu() - ref[key].float()).abs().max().item()
+            log(f"[reference] tiny slice f32 {method} {key}: card vs CPU max abs err {err:.3e} "
+                f"(tol {tol})")
+            if not err <= tol:
+                raise AssertionError(f"tiny slice {method} {key} on the card disagrees with "
+                                     f"the CPU: {err}")
+        del m
     kernels.reset_launch_counts()
 
 
@@ -269,12 +374,164 @@ def phase_serve(dev, card):
         f"(first includes warm-up), peak memory {peak:.2f} GiB, card {card}")
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
-    want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS}
+    want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
+            "msda_reduce": 0}
     log(f"[serve] kernel launches {launches}, expected {want} "
         f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     return launches
+
+
+def _check_prediction(res, task):
+    oh, ow = R50_IMAGE
+    inst = res["instances"]
+    k = len(inst["scores"])
+    if task == "grounding" and k != 1:
+        raise AssertionError(f"grounding gave {k} instances, expected 1")
+    expect = {"boxes": (k, 4), "scores": (k,), "classes": (k,), "masks": (k, oh, ow)}
+    for name, shape in expect.items():
+        if inst[name].shape != shape:
+            raise AssertionError(f"{task} {name}: shape {inst[name].shape}, expected {shape}")
+    if not (np.isfinite(inst["boxes"]).all() and np.isfinite(inst["scores"]).all()):
+        raise AssertionError(f"{task}: non-finite boxes or scores")
+    if task == "detection":
+        pan, segments = res["panoptic_seg"]
+        if pan.shape != (oh, ow) or res["sem_seg"].shape != (oh, ow):
+            raise AssertionError(f"panoptic {pan.shape} / sem_seg {res['sem_seg'].shape}")
+        if int(pan.max()) > len(segments) or int(res["sem_seg"].max()) >= N_CLASSES:
+            raise AssertionError("panoptic ids or semantic classes out of range")
+    elif "panoptic_seg" in res or "sem_seg" in res:
+        raise AssertionError("grounding gave a panoptic or semantic map")
+
+
+def phase_predict(dev, card):
+    """The R50 predictor: panoptic, grounding and parts calls, fused and flat4."""
+    import re
+
+    from hipie_torch import kernels
+    from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.predictor import HIPIEPredictor, PartSegmDemo, parse_def_string
+    from hipie_torch.utils.weights import random_init_
+    from hipie_tpu.data.prompts import build_prompt_spec
+    from hipie_tpu.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
+    from hipie_tpu.data.transforms import pad_to_bucket
+    from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
+    from hipie_tpu.presets import r50_coco_panoptic
+    from hipie_torch.data.transforms import resize_shortest_edge
+
+    cfg = r50_coco_panoptic()
+    mc = cfg.model
+    t0 = time.perf_counter()
+    models = {}
+    for method in ("fused", "flat4"):
+        with torch.device(dev):
+            models[method] = HIPIEModel(mc, msda_method=method).eval()
+    random_init_(models["fused"], torch.Generator(device=dev).manual_seed(SEED))
+    models["fused"].to(torch.bfloat16)
+    models["flat4"].to(torch.bfloat16).load_state_dict(models["fused"].state_dict(), strict=True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in models["fused"].parameters())
+    log(f"[predict] HIPIEModel(r50_coco_panoptic) x2 (fused, flat4) {n_params / 1e6:.1f} M "
+        f"params each, bf16, built in {time.perf_counter() - t0:.1f} s")
+
+    labels = [n if thing else f"{n}:stuff"
+              for n, thing in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING)]
+    parts = ["head", "torso", "arm", "leg", "tail", "wheel", "window", "door"]
+    expression = "the person on the left holding an umbrella"
+    words = {w for text in COCO_PANOPTIC_133 + parts + [expression]
+             for w in re.split(r"[^a-z0-9]+", text) if w}
+    tok = WordPieceTokenizer.toy(words=sorted(words))
+    preds = {m: HIPIEPredictor(cfg, model, tok, bucket=R50_BUCKET, device=dev)
+             for m, model in models.items()}
+    rng = np.random.RandomState(SEED + 2)
+    images = [rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8) for _ in range(5)]
+    n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
+              + mc.maskdino.dec_layers)
+
+    calls = []
+
+    def timed(name, fn, kernel="ms_deform_attn", passes=1):
+        """Times one call and checks it launched n_msda x passes of ``kernel`` alone."""
+        before = dict(kernels.LAUNCHES)
+        t = time.perf_counter()
+        out = fn()
+        calls.append((name, 1000.0 * (time.perf_counter() - t)))
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        want = {k: n_msda * passes if k == kernel else 0 for k in before}
+        if delta != want:
+            raise AssertionError(f"{name}: kernel launches {delta} != {want}")
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    fused = preds["fused"]
+    for i in range(2):
+        res = timed(f"panoptic{i}", lambda: fused(images[i], test_categories=labels))
+        _check_prediction(res, "detection")
+    log(f"[predict] panoptic: {len(res['panoptic_seg'][1])} segments, "
+        f"{len(res['instances']['scores'])} instances above 0.5")
+    res = timed("grounding", lambda: fused(images[2], task="grounding", expressions=expression))
+    _check_prediction(res, "grounding")
+    log(f"[predict] grounding: score {res['instances']['scores'][0]:.4f}, box "
+        f"{np.round(res['instances']['boxes'][0], 1).tolist()}")
+    demo = PartSegmDemo(fused, parts)
+    things = [n for n, t in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING) if t]
+    stuff = [n for n, t in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING) if not t]
+    res = timed("parts (2 passes)",
+                lambda: demo.forward_panoptic(images[3], things, stuff, do_part=True), passes=2)
+    _check_prediction(res, "detection")
+    part_sem = res["parts"]["part_sem_seg"]
+    if (part_sem.shape != R50_IMAGE or part_sem.max() >= len(parts)
+            or len(res["parts"]["instance_part_maps"]) != len(res["instances"]["masks"])):
+        raise AssertionError("part segmentation output is malformed")
+    fused_launches = dict(kernels.LAUNCHES)
+    n_passes = 2 + 1 + 2
+    want = {"vit_attention": 0, "ms_deform_attn": n_msda * n_passes, "msda_reduce": 0}
+    log(f"[predict] fused: kernel launches {fused_launches}, expected {want} "
+        f"({n_msda} MSDA layers x {n_passes} model passes)")
+    if fused_launches != want:
+        raise AssertionError(f"launch counts {fused_launches} != {want}")
+
+    kernels.reset_launch_counts()
+    res = timed("panoptic flat4", lambda: preds["flat4"](images[4], test_categories=labels),
+                kernel="msda_reduce")
+    _check_prediction(res, "detection")
+    flat4_launches = dict(kernels.LAUNCHES)
+    want = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": n_msda}
+    log(f"[predict] flat4: kernel launches {flat4_launches}, expected {want}")
+    if flat4_launches != want:
+        raise AssertionError(f"launch counts {flat4_launches} != {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[predict] ms per call, host pre- and post-processing included (the first "
+        f"includes warm-up): {[(n, round(t, 3)) for n, t in calls]}; peak memory {peak:.2f} GiB "
+        f"(two bf16 models resident); card {card}")
+
+    # one f32 request through both methods, compared before any top-k
+    resized, _ = resize_shortest_edge(images[0], cfg.data.min_size_test, cfg.data.max_size_test)
+    h, w = resized.shape[:2]
+    padded, pad_mask = pad_to_bucket(resized, R50_BUCKET)
+    names, is_thing = parse_def_string(labels)
+    spec = build_prompt_spec(names, is_thing, tok, cfg.data.max_text_len)
+    args = (torch.from_numpy(padded[None]).to(dev), torch.from_numpy(pad_mask[None]).to(dev),
+            torch.from_numpy(spec.input_ids[None]).long().to(dev),
+            torch.from_numpy(spec.attention_mask[None]).to(dev),
+            torch.tensor([[h, w]], device=dev))
+    outs = {}
+    with torch.inference_mode():
+        for method, model in models.items():
+            outs[method] = model.float()(*args)
+    torch.cuda.synchronize()
+    for key in ("memory", "enc_outputs_class"):
+        a, b = outs["flat4"][key].float(), outs["fused"][key].float()
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        tol = 1e-4        # the same f32 samples summed in another order, through 6 layers
+        log(f"[predict] f32 {key} {tuple(b.shape)}: flat4 vs fused max abs err {err:.3e} "
+            f"(scale {scale:.3e}, tol {tol})")
+        if not (err <= tol and torch.isfinite(a).all()):
+            raise AssertionError(f"f32 {key}: flat4 and fused disagree: {err} > {tol}")
+    return flat4_launches
 
 
 def main() -> int:
@@ -289,6 +546,7 @@ def main() -> int:
     records = phase_kernels(dev)
     phase_reference(dev)
     launches = phase_serve(dev, card)
+    launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
     for r in records:
         r["launches"] = launches[r["name"]]
     log(json.dumps({"kernels": records}))

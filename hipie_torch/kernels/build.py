@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
 All sources under ``hipie_torch/csrc/`` compile, at first use, into one shared
-library with a plain C interface, for ``sm_90a``:
+library with a plain C interface, for ``sm_90a``: one nvcc per source, all
+started together, then one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o hipie_torch/_build/<hash>/libhipie_kernels.so \
-         hipie_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC \
+         -Xptxas -v -c -o <name>.o hipie_torch/csrc/<name>.cu        # each source
+    nvcc -shared -o hipie_torch/_build/<hash>/libhipie_kernels.so *.o
 
 The output directory is keyed by a hash of the sources and the flags, so an
 edited kernel rebuilds and an unchanged one loads at once. Nothing here runs at
@@ -30,7 +31,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 LIB_NAME = "libhipie_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _vp = ctypes.c_void_p
 _int = ctypes.c_int
@@ -40,6 +41,7 @@ _SIGNATURES = {
                             _int, _int, _int, _int, _int, ctypes.c_float, _vp],
     "hipie_ms_deform_attn": [_vp, _vp, _vp, _vp, _vp, _vp,
                              _int, _int, _int, _int, _int, _int, _int, _int, _vp],
+    "hipie_msda_reduce": [_vp, _vp, _vp, ctypes.c_longlong, _int, _int, _int, _vp],
 }
 
 
@@ -90,13 +92,24 @@ def build() -> BuildInfo:
         return _info
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                  text=True) for cmd in compiles]
+        outs = [proc.communicate()[0] for proc in procs]     # wait for every compile
+        log = "".join(outs)
+        for cmd, proc, out in zip(compiles, procs, outs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
         tmp_lib = Path(tmp) / LIB_NAME
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_lib), *map(str, _sources())]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        log = res.stdout + res.stderr
+        link = [nvcc, "-shared", "-o", str(tmp_lib), *map(str, objs)]
+        res = subprocess.run(link, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n{log}")
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{' '.join(link)}\n"
+                               f"{res.stdout}{res.stderr}")
         os.replace(tmp_lib, lib)
     log_file.write_text(log)
     _info = BuildInfo(lib, time.perf_counter() - t0, log, cached=False)

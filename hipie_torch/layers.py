@@ -48,6 +48,29 @@ class MLP(nn.Module):
         return x
 
 
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics over dim 1 of an NCHW map (detectron2
+    FrozenBatchNorm2d), folded into a scale and a bias in f32 and applied in the
+    input's dtype, as the JAX package's FrozenBatchNorm.
+
+    ``weight``, ``bias``, ``running_mean`` and ``running_var`` are buffers under
+    those names, as the exported checkpoint names them.
+    """
+
+    def __init__(self, num_features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x):
+        scale = self.weight.float() * (self.running_var.float() + self.eps).rsqrt()
+        shift = self.bias.float() - self.running_mean.float() * scale
+        return x * scale.to(x.dtype)[:, None, None] + shift.to(x.dtype)[:, None, None]
+
+
 class ConvGN(nn.Sequential):
     """Conv2d (symmetric k//2 padding) + GroupNorm(32) on NHWC input.
 

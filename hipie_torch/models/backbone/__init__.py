@@ -1,7 +1,9 @@
 """Backbone construction and per-level masks and position embeddings.
 
-Counterpart of hipie_tpu/models/backbone/__init__.py. Only the ViT branch of
-``build_backbone`` is ported so far; ResNet, TinyCNN, Swin and ConvNeXt raise.
+Counterpart of hipie_tpu/models/backbone/__init__.py. The ResNet and ViT
+branches of ``build_backbone`` are ported, tested in the JAX package's order;
+TinyCNN, Swin and ConvNeXt raise. As in JAX, every name that starts with
+"resnet" (``"resnet_tiny"`` too) builds a ResNet of ``resnet_depth``.
 """
 
 from __future__ import annotations
@@ -14,11 +16,17 @@ import torch.nn.functional as F
 
 from hipie_tpu.config import BackboneConfig
 from hipie_torch.layers import sine_position_embedding_2d
+from hipie_torch.models.backbone.resnet import ResNet, resnet_feature_channels
 from hipie_torch.models.backbone.vit import VIT_VARIANTS, ViTDet, vit_feature_channels
 
 
 def build_backbone(cfg: BackboneConfig) -> Tuple[nn.Module, Dict[str, int]]:
     """Returns (module mapping an NHWC image -> {resN: NHWC map}, {resN: channels})."""
+    if cfg.name.startswith("resnet"):
+        mod = ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
+        chans = {k: v for k, v in resnet_feature_channels(cfg.resnet_depth).items()
+                 if k in cfg.out_features}
+        return mod, chans
     if cfg.name not in VIT_VARIANTS:
         raise NotImplementedError(f"backbone {cfg.name!r} is not ported to hipie_torch yet")
     embed_dim, depth, num_heads, _drop_path = VIT_VARIANTS[cfg.name]

@@ -9,7 +9,9 @@ names: ``detr.backbone.0.backbone``, ``detr.input_proj.N``,
 ``mask_head``, ``mask_dino`` and ``mask_dino_cls_embed.N``. Only the heads that
 inference calls are built: the last decoder layer's class and IoU heads, the
 encoder heads, and the last MaskDINO class projection, as the JAX package's
-inference ``init`` creates exactly those.
+inference ``init`` creates exactly those. ``msda_method`` ("fused" or "flat4")
+reaches every MSDeformAttn: 6 encoder, 6 decoder and 9 MaskDINO decoder layers
+in the presets.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch.nn as nn
 from hipie_tpu.config import ModelConfig
 from hipie_torch.layers import MLP, ConvGN, sine_position_embedding_2d
 from hipie_torch.models.backbone import build_backbone, masked_features
-from hipie_torch.models.heads import StillClassifier, VLAlign
+from hipie_torch.models.heads import StillClassifier, VLAlign, agg_lang_feat
 from hipie_torch.models.mask_head import (MaskFeatureHead, dynamic_conv_param_sizes,
                                           dynamic_mask_with_coords)
 from hipie_torch.models.maskdino.model import MaskDINOHead
@@ -40,7 +42,7 @@ class _Joiner(nn.Module):
 class DeformableDETR(nn.Module):
     """The reference's ``detr.detr``: backbone, projections, transformer, heads."""
 
-    def __init__(self, c: ModelConfig):
+    def __init__(self, c: ModelConfig, msda_method: str = "fused"):
         super().__init__()
         tc = c.transformer
         backbone, chans = build_backbone(c.backbone)
@@ -52,7 +54,8 @@ class DeformableDETR(nn.Module):
         projs += [ConvGN(in_ch[-1] if i == 0 else tc.d_model, tc.d_model, 3, stride=2)
                   for i in range(n_extra)]
         self.input_proj = nn.ModuleList(projs)
-        self.transformer = VLDeformableTransformer(tc, lang_dim=c.text.hidden_size)
+        self.transformer = VLDeformableTransformer(tc, lang_dim=c.text.hidden_size,
+                                                   msda_method=msda_method)
         n_dec = tc.num_decoder_layers
         self.bbox_embed = nn.ModuleList(MLP(tc.d_model, tc.d_model, 4, 3)
                                         for _ in range(n_dec + 1))
@@ -66,13 +69,13 @@ class DeformableDETR(nn.Module):
 
 
 class HIPIEDetector(nn.Module):
-    def __init__(self, c: ModelConfig):
+    def __init__(self, c: ModelConfig, msda_method: str = "fused"):
         super().__init__()
         if c.transformer.dropout != 0.0:
             raise NotImplementedError("transformer.dropout is not implemented")
         self.cfg = c
         tc = c.transformer
-        self.detr = DeformableDETR(c)
+        self.detr = DeformableDETR(c, msda_method)
         mh = c.mask_head
         self.weight_nums, self.bias_nums = dynamic_conv_param_sizes(
             tc.d_model // 32, mh.dynamic_mask_channels, mh.num_dynamic_layers, mh.use_rel_coord)
@@ -81,7 +84,7 @@ class HIPIEDetector(nn.Module):
         self.mask_head = MaskFeatureHead(tc.d_model)
         if c.maskdino.enabled:
             chans = self.detr.feature_channels
-            self.mask_dino = MaskDINOHead(c.maskdino, chans["res3"], chans["res5"])
+            self.mask_dino = MaskDINOHead(c.maskdino, chans["res3"], chans["res5"], msda_method)
             self.mask_dino_cls_embed = nn.ModuleDict({
                 str(c.maskdino.dec_layers + 1): VLAlign(c.text.hidden_size,
                                                         c.maskdino.hidden_dim)})
@@ -104,9 +107,12 @@ class HIPIEDetector(nn.Module):
             prev = src
         return srcs, masks, poses
 
-    def forward(self, images, pad_mask, lang_hidden, lang_masks, image_sizes) -> Dict[str, Any]:
+    def forward(self, images, pad_mask, lang_hidden, lang_masks, image_sizes,
+                task: str = "detection") -> Dict[str, Any]:
         """images (B, H, W, 3) normalised NHWC; pad_mask (B, H, W) True = pad;
-        lang_hidden (B, L, lang_dim); lang_masks (B, L); image_sizes (B, 2) (h, w)."""
+        lang_hidden (B, L, lang_dim); lang_masks (B, L); image_sizes (B, 2) (h, w);
+        task "detection" (class logits per token) or "grounding" (one logit
+        against the pooled expression)."""
         c = self.cfg
         detr = self.detr
         features = detr.backbone[0].backbone(images)
@@ -115,9 +121,13 @@ class HIPIEDetector(nn.Module):
         t = detr.transformer(srcs, masks, poses, lang_hidden, lang_masks,
                              enc_class_head=detr.class_embed[str(n_dec)],
                              enc_bbox_head=detr.bbox_embed[n_dec],
-                             bbox_heads=detr.bbox_embed[:n_dec])
+                             bbox_heads=detr.bbox_embed[:n_dec], task=task)
         hs = t["hs"]
         l_hidden = t["lang_hidden"]
+        if task == "grounding":
+            lang_for_cls = agg_lang_feat(l_hidden, lang_masks)[:, None, :]
+        else:
+            lang_for_cls = l_hidden
         last = str(n_dec - 1)
         outputs: Dict[str, Any] = {
             "outputs_coord": t["outputs_coord"],
@@ -126,7 +136,7 @@ class HIPIEDetector(nn.Module):
             "spatial_shapes": t["spatial_shapes"],
             "lang_hidden": l_hidden,
             "memory": t["memory"],
-            "pred_logits": detr.class_embed[last](hs[-1], l_hidden),
+            "pred_logits": detr.class_embed[last](hs[-1], lang_for_cls),
             "pred_boxes": t["outputs_coord"][-1],
         }
         if c.use_iou_head:
@@ -153,6 +163,6 @@ class HIPIEDetector(nn.Module):
         if c.maskdino.enabled:
             md = self.mask_dino(features, shared_memory_levels=mem_maps)
             cls_head = self.mask_dino_cls_embed[str(c.maskdino.dec_layers + 1)]
-            md["pred_logits"] = cls_head(md["pred_logits"].to(hs.dtype), l_hidden)
+            md["pred_logits"] = cls_head(md["pred_logits"].to(hs.dtype), lang_for_cls)
             outputs["maskdino"] = md
         return outputs

@@ -2,7 +2,10 @@
 
 Counterpart of hipie_tpu/models/hipie.py (reference hipie_img.py). Serving
 shape: ``encode_text`` once for a fixed class prompt, then ``forward(...,
-lang_hidden=...)`` and ``hipie_inference`` per image.
+lang_hidden=...)`` and ``hipie_inference`` per image; ``hipie_torch.predictor``
+wraps both for one image and a label set or a referring expression. Tasks:
+"detection" (instances, semantic and panoptic maps over a label set) and
+"grounding" (the one instance a referring expression names).
 """
 
 from __future__ import annotations
@@ -21,10 +24,16 @@ from hipie_torch.models.text.bert import BertEncoder, parallel_det_block_mask
 
 
 class HIPIEModel(nn.Module):
-    """Detection-task inference model. Module names match the reference checkpoint."""
+    """Inference model. Module names match the reference checkpoint.
+
+    ``msda_method`` picks every MSDeformAttn's sampling core, as the JAX
+    package's ``HIPIE_MSDA_METHOD`` does: "fused" (kernel K-B, the default) or
+    "flat4" (quad-table gather and kernel K-C; its tables take the value dtype,
+    so it is JAX's "flat4_bf16" under bf16 and "flat4" under f32).
+    """
 
     def __init__(self, cfg: ModelConfig, parallel_det: bool = False, sep_token_id: int = 1012,
-                 cls_token_id: int = 101, pad_token_id: int = 0):
+                 cls_token_id: int = 101, pad_token_id: int = 0, msda_method: str = "fused"):
         super().__init__()
         self.cfg = cfg
         self.parallel_det = parallel_det
@@ -35,30 +44,34 @@ class HIPIEModel(nn.Module):
             vocab_size=t.vocab_size, hidden_size=t.hidden_size, num_layers=t.num_layers,
             num_heads=t.num_heads, intermediate_size=t.intermediate_size,
             max_position_embeddings=t.max_position_embeddings)
-        self.detr = HIPIEDetector(cfg)
+        self.detr = HIPIEDetector(cfg, msda_method)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(self.cfg.pixel_mean, dtype=torch.float32, device=images.device)
         std = torch.tensor(self.cfg.pixel_std, dtype=torch.float32, device=images.device)
         return (images.float() - mean) / std
 
-    def encode_text(self, input_ids, attn_mask):
-        """(B, L) token ids and mask -> (B, L, hidden) text features."""
+    def encode_text(self, input_ids, attn_mask, task: str = "detection"):
+        """(B, L) token ids and mask -> (B, L, hidden) text features. The
+        parallel_det block mask applies to detection prompts only."""
         block_mask = None
-        if self.parallel_det:
+        if self.parallel_det and task == "detection":
             block_mask = parallel_det_block_mask(input_ids, self.sep_token_id,
                                                  self.cls_token_id, self.pad_token_id)
         return self.text_encoder(input_ids, attn_mask, block_mask)
 
     def forward(self, images, pad_mask, input_ids, lang_attn_mask, image_sizes,
+                task: str = "detection",
                 lang_hidden: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """images (B, H, W, 3) raw RGB (any numeric dtype); pad_mask (B, H, W) True = pad;
         input_ids / lang_attn_mask (B, L); image_sizes (B, 2) valid (h, w).
         Pass ``lang_hidden`` from ``encode_text`` to reuse a fixed prompt's features."""
+        if task not in ("detection", "grounding"):
+            raise ValueError(f"task must be 'detection' or 'grounding', got {task!r}")
         x = self.normalize(images).masked_fill(pad_mask[..., None], 0.0)
         if lang_hidden is None:
-            lang_hidden = self.encode_text(input_ids, lang_attn_mask)
-        return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes)
+            lang_hidden = self.encode_text(input_ids, lang_attn_mask, task)
+        return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task)
 
 
 class InferenceResult(NamedTuple):
@@ -68,19 +81,22 @@ class InferenceResult(NamedTuple):
     classes: torch.Tensor           # (K,)
     boxes: torch.Tensor             # (K, 4) xyxy normalised to the padded canvas
     mask_logits: torch.Tensor       # (K, H4, W4)
-    sem_seg: Optional[torch.Tensor]          # (C, H4, W4)
-    panoptic: Optional[torch.Tensor]         # (H4, W4) int32 segment ids
+    sem_seg: Optional[torch.Tensor]          # (C, H4, W4); None for grounding
+    panoptic: Optional[torch.Tensor]         # (H4, W4) int32 segment ids; None for grounding
     segment_valid: Optional[torch.Tensor]
     segment_classes: Optional[torch.Tensor]
     segment_isthing: Optional[torch.Tensor]
 
 
 def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConfig,
-                    model_cfg: ModelConfig, image_index: int = 0, has_thing: bool = True,
+                    model_cfg: ModelConfig, image_index: int = 0, task: str = "detection",
+                    has_thing: bool = True,
                     pad_mask_s4: Optional[torch.Tensor] = None) -> InferenceResult:
     """Fuse fg and bg branches into instance / semantic / panoptic results for one
-    image, detection task (reference hipie_img.py inference, with its defaults
-    use_bg_for_pano=True and transform_eval=True). CLIP fusion is not ported yet."""
+    image (reference hipie_img.py inference, with its defaults use_bg_for_pano=True
+    and transform_eval=True). Grounding keeps the one best instance and gives no
+    semantic or panoptic map. CLIP fusion and language-derived bg queries are
+    not ported yet."""
     i = image_index
     n_bg = model_cfg.transformer.num_bg_queries
     fg_logits = outputs["pred_logits"][i][n_bg:]
@@ -89,10 +105,15 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
     iou = outputs.get("pred_boxious")
     iou_i = iou[i][n_bg:] if iou is not None else None
 
+    max_det = test_cfg.detections_per_image if task == "detection" else 1
     inst = fg_instance_inference(fg_logits, fg_boxes, fg_masks, iou_i, maps,
-                                 max_detections=test_cfg.detections_per_image,
+                                 max_detections=max_det,
                                  nms_thresh=test_cfg.nms_thresh, has_thing=has_thing,
                                  max_pool=test_cfg.max_pool_tokens)
+    if task != "detection":
+        return InferenceResult(scores=inst.scores, classes=inst.classes, boxes=inst.boxes,
+                               mask_logits=inst.mask_logits, sem_seg=None, panoptic=None,
+                               segment_valid=None, segment_classes=None, segment_isthing=None)
 
     md = outputs.get("maskdino")
     if md is not None:

@@ -67,16 +67,17 @@ class MaskDINOPixelDecoder(nn.Module):
 
 
 class MaskDINODecoderStack(nn.Module):
-    def __init__(self, c: MaskDINOConfig):
+    def __init__(self, c: MaskDINOConfig, msda_method: str = "fused"):
         super().__init__()
         self.layers = nn.ModuleList(
-            DeformableDecoderLayer(c.hidden_dim, c.dim_feedforward, N_LEVELS, c.nheads, 4)
+            DeformableDecoderLayer(c.hidden_dim, c.dim_feedforward, N_LEVELS, c.nheads, 4,
+                                   msda_method)
             for _ in range(c.dec_layers))
         self.ref_point_head = MLP(2 * c.hidden_dim, c.hidden_dim, c.hidden_dim, 2)
 
 
 class MaskDINODecoder(nn.Module):
-    def __init__(self, c: MaskDINOConfig):
+    def __init__(self, c: MaskDINOConfig, msda_method: str = "fused"):
         super().__init__()
         self.cfg = c
         self.class_embed = nn.Linear(c.hidden_dim, c.hidden_dim)
@@ -85,7 +86,7 @@ class MaskDINODecoder(nn.Module):
         self.decoder_norm = nn.LayerNorm(c.hidden_dim, eps=1e-5)
         self.enc_output = nn.Linear(c.hidden_dim, c.hidden_dim)
         self.enc_output_norm = nn.LayerNorm(c.hidden_dim, eps=1e-5)
-        self.decoder = MaskDINODecoderStack(c)
+        self.decoder = MaskDINODecoderStack(c, msda_method)
 
     def forward(self, level_maps: Sequence[torch.Tensor], mask_features: torch.Tensor):
         """level_maps [s64, s32, s16, s8] NHWC; mask_features (B, H4, W4, mask_dim).
@@ -140,10 +141,11 @@ class MaskDINODecoder(nn.Module):
 class MaskDINOHead(nn.Module):
     """Pixel decoder + decoder (reference meta_arch/maskdino_head.py)."""
 
-    def __init__(self, c: MaskDINOConfig, res3_channels: int, res5_channels: int):
+    def __init__(self, c: MaskDINOConfig, res3_channels: int, res5_channels: int,
+                 msda_method: str = "fused"):
         super().__init__()
         self.pixel_decoder = MaskDINOPixelDecoder(c, res3_channels, res5_channels)
-        self.predictor = MaskDINODecoder(c)
+        self.predictor = MaskDINODecoder(c, msda_method)
 
     def forward(self, features, shared_memory_levels):
         mask_features, level_maps = self.pixel_decoder(features, shared_memory_levels)

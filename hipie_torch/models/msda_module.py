@@ -1,10 +1,12 @@
-"""MSDeformAttn: projections and sampling-location math around kernel K-B.
+"""MSDeformAttn: projections and sampling-location math around the MSDA op.
 
 Counterpart of hipie_tpu/models/msda_module.py (reference
 ops/modules/ms_deform_attn.py): value projection with pad masking, per-query
 sampling offsets and softmaxed attention weights, 2-d points or 4-d boxes as
 reference points. Locations and weights are f32; the sampled output is cast to
-the compute dtype before output_proj.
+the compute dtype before output_proj. ``msda_method`` picks the sampling core
+as the JAX package's ``HIPIE_MSDA_METHOD`` does: "fused" (kernel K-B) or
+"flat4" (quad-table gather + kernel K-C).
 """
 
 from __future__ import annotations
@@ -15,17 +17,20 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from hipie_torch.ops.ms_deform_attn import ms_deform_attn
+from hipie_torch.ops.ms_deform_attn import MSDA_METHODS, ms_deform_attn
 
 Shapes = Tuple[Tuple[int, int], ...]
 
 
 class MSDeformAttn(nn.Module):
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
-                 n_points: int = 4):
+                 n_points: int = 4, msda_method: str = "fused"):
         super().__init__()
+        if msda_method not in MSDA_METHODS:
+            raise ValueError(f"msda_method must be one of {MSDA_METHODS}, got {msda_method!r}")
         self.d_model, self.n_levels, self.n_heads, self.n_points = (
             d_model, n_levels, n_heads, n_points)
+        self.msda_method = msda_method
         self.sampling_offsets = nn.Linear(d_model, n_heads * n_levels * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * n_levels * n_points)
         self.value_proj = nn.Linear(d_model, d_model)
@@ -66,5 +71,6 @@ class MSDeformAttn(nn.Module):
             loc = ref[:, :, None, :, None, :] + offsets / normalizer[None, None, None, :, None, :]
         else:
             loc = ref[:, :, None, :, None, :2] + offsets / p * ref[:, :, None, :, None, 2:] * 0.5
-        out = ms_deform_attn(v, spatial_shapes, loc.contiguous(), weights.contiguous())
+        out = ms_deform_attn(v, spatial_shapes, loc.contiguous(), weights.contiguous(),
+                             method=self.msda_method)
         return self.output_proj(out.to(query.dtype))

@@ -9,9 +9,10 @@ content queries; decoder with iterative box refinement and look-forward-twice.
 Module names follow the reference's state_dict (encoder.layers.N,
 encoder.vl_layers.N.b_attn, decoder.layers.N, decoder.ref_point_head). The box
 heads and the encoder class head live in the detector (detr.bbox_embed,
-detr.class_embed) as in the reference, and are passed in. Not ported yet: CDN
-queries, language-derived bg queries, the grounding task, the in-encoder BERT
-layers and the non-decoupled content mode.
+detr.class_embed) as in the reference, and are passed in. ``msda_method``
+("fused" or "flat4") goes to every MSDeformAttn. Not ported yet: CDN queries,
+language-derived bg queries, the in-encoder BERT layers and the non-decoupled
+content mode.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ def encoder_reference_points(spatial_shapes: Shapes, valid_ratios: torch.Tensor)
 
 
 class DeformableEncoderLayer(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
+                 msda_method: str = "fused"):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, msda_method)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
@@ -63,9 +65,10 @@ class DeformableEncoderLayer(nn.Module):
 
 
 class DeformableDecoderLayer(nn.Module):
-    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int):
+    def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
+                 msda_method: str = "fused"):
         super().__init__()
-        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.cross_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points, msda_method)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.self_attn = MultiHeadAttention(d_model, n_heads)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
@@ -91,12 +94,12 @@ class _VLLayer(nn.Module):
 
 
 class VLEncoder(nn.Module):
-    def __init__(self, c: TransformerConfig, lang_dim: int):
+    def __init__(self, c: TransformerConfig, lang_dim: int, msda_method: str = "fused"):
         super().__init__()
         n_vl = min(c.num_vl_layers, c.num_encoder_layers) if c.use_vl_fusion else 0
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(c.d_model, c.dim_feedforward, c.num_feature_levels,
-                                   c.nhead, c.enc_n_points)
+                                   c.nhead, c.enc_n_points, msda_method)
             for _ in range(c.num_encoder_layers))
         self.vl_layers = nn.ModuleList(
             _VLLayer(BiAttentionBlock(c.d_model, lang_dim, c.vl_hidden_dim, c.vl_nheads,
@@ -112,11 +115,11 @@ class VLEncoder(nn.Module):
 
 
 class DINODecoder(nn.Module):
-    def __init__(self, c: TransformerConfig):
+    def __init__(self, c: TransformerConfig, msda_method: str = "fused"):
         super().__init__()
         self.layers = nn.ModuleList(
             DeformableDecoderLayer(c.d_model, c.dim_feedforward, c.num_feature_levels,
-                                   c.nhead, c.dec_n_points)
+                                   c.nhead, c.dec_n_points, msda_method)
             for _ in range(c.num_decoder_layers))
         # input: sine embedding of the 4 box coordinates, d_model / 2 features each
         self.ref_point_head = MLP(2 * c.d_model, c.d_model, c.d_model, 2)
@@ -148,16 +151,16 @@ def two_stage_proposals(spatial_shapes: Shapes, valid_ratios, mask_flat):
 class VLDeformableTransformer(nn.Module):
     """Encoder + two-stage selection + decoder, inference branch."""
 
-    def __init__(self, c: TransformerConfig, lang_dim: int = 768):
+    def __init__(self, c: TransformerConfig, lang_dim: int = 768, msda_method: str = "fused"):
         super().__init__()
         if c.use_extra_bert_layers or not c.decouple_tgt:
             raise NotImplementedError("in-encoder BERT layers and non-decoupled content "
                                       "queries are not ported yet")
         self.cfg = c
         self.level_embed = nn.Parameter(torch.randn(c.num_feature_levels, c.d_model))
-        self.encoder = VLEncoder(c, lang_dim)
-        self.decoder = DINODecoder(c)
-        # the grounding task's query content (not ported); built for the strict load
+        self.encoder = VLEncoder(c, lang_dim, msda_method)
+        self.decoder = DINODecoder(c, msda_method)
+        # pooled language -> query content, for grounding without still_tgt_for_both
         self.resizer = FeatureResizer(lang_dim, c.d_model)
         self.enc_output = nn.Linear(c.d_model, c.d_model)
         self.enc_output_norm = nn.LayerNorm(c.d_model, eps=1e-5)
@@ -170,9 +173,11 @@ class VLDeformableTransformer(nn.Module):
     def forward(self, srcs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                 pos_embeds: Sequence[torch.Tensor], lang_hidden, lang_masks,
                 enc_class_head: nn.Module, enc_bbox_head: nn.Module,
-                bbox_heads: Sequence[nn.Module]) -> Dict[str, torch.Tensor]:
+                bbox_heads: Sequence[nn.Module], task: str = "detection"
+                ) -> Dict[str, torch.Tensor]:
         """srcs/pos_embeds per level (B, H, W, C), masks (B, H, W) True = pad;
-        lang_hidden (B, L, lang_dim), lang_masks (B, L) 1 = valid."""
+        lang_hidden (B, L, lang_dim), lang_masks (B, L) 1 = valid; task
+        "detection" or "grounding"."""
         c = self.cfg
         b = srcs[0].shape[0]
         dtype = self.level_embed.dtype
@@ -193,7 +198,6 @@ class VLDeformableTransformer(nn.Module):
         memory, l_hidden = self.encoder(src_flat, lang_hidden.to(dtype), pos_flat, enc_ref,
                                         spatial_shapes, mask_flat, lang_masks)
 
-        # resizer(lang_pool) is the content of grounding-mode queries only
         lang_pool = agg_lang_feat(l_hidden, lang_masks)
 
         # ---- two-stage proposals ------------------------------------------
@@ -214,6 +218,10 @@ class VLDeformableTransformer(nn.Module):
         if c.num_bg_queries > 0:
             tgt = torch.cat([self.tgt_embed_bg.weight[None].expand(b, -1, -1), tgt], 1)
             refs = torch.cat([self.bg_query_refs.weight.float()[None].expand(b, -1, -1), refs], 1)
+        # decoupled content: grounding without still_tgt_for_both puts the pooled
+        # language feature into every query slot; detection keeps the embeddings
+        if not c.still_tgt_for_both and task == "grounding":
+            tgt = self.resizer(lang_pool)[:, None, :].expand_as(tgt)
         init_reference = refs
 
         # ---- decoder --------------------------------------------------------

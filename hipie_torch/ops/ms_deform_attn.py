@@ -1,11 +1,13 @@
-"""Multi-scale deformable attention (kernel K-B).
+"""Multi-scale deformable attention (kernel K-B, and the ``flat4`` path on K-C).
 
 Counterpart of hipie_tpu/ops/ms_deform_attn.py::ms_deform_attn_jnp with the
 semantics of the reference CUDA op: bilinear sampling with
 ``align_corners=False`` and zero padding, weighted over levels and points.
 ``ms_deform_attn`` takes a CPU tensor to the plain version and a CUDA tensor to
 the hand-written kernel in ``hipie_torch/csrc/ms_deform_attn.cu``; there is no
-fallback between the two.
+fallback between the two. ``method="flat4"`` instead runs the JAX package's
+``flat4`` formulation, whose segment reduce is kernel K-C
+(``hipie_torch/ops/msda_reduce.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from hipie_torch import kernels
+from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -60,10 +63,73 @@ def _level_tables(spatial_shapes: Shapes, device: torch.device):
     return _LEVEL_TABLES[key]
 
 
+def ms_deform_attn_flat4(value, spatial_shapes: Shapes, sampling_locations,
+                         attention_weights) -> torch.Tensor:
+    """The ``flat4`` formulation around kernel K-C (JAX ``_flat_quad_attn_v4``).
+
+    Per level, a quad table holds each cell's four bilinear corners side by side,
+    (B, M, (H+1)(W+1), 4D) with a one-cell zero ring, so a sample is one row of
+    it. Rows are gathered in (b, q, m, l, p) order, weighted per corner by the
+    bilinear weight times the attention weight (cast to the table dtype, as
+    JAX does) and summed over the K = L*P samples of each (b, q, m) by
+    ``msda_weighted_segment_sum``; the corners are folded last. The table dtype
+    is the value's: bf16 is JAX's ``flat4_bf16``, f32 its ``flat4``. Returns
+    (B, Q, M*D) in the value's dtype.
+    """
+    b, s, m, d = value.shape
+    _, q, _, n_levels, p, _ = sampling_locations.shape
+    if sum(h * w for h, w in spatial_shapes) != s:
+        raise ValueError(f"spatial shapes {spatial_shapes} do not sum to S={s}")
+    loc = sampling_locations.float()
+    weights = attention_weights.float()
+    value_t = value.permute(0, 2, 1, 3)                                 # (B, M, S, D)
+    tables, idx_parts, cw_parts = [], [], []
+    start = row_off = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        vp = F.pad(value_t[:, :, start:start + h * w].reshape(b, m, h, w, d), (0, 0, 1, 1, 1, 1))
+        quad = torch.cat([vp[:, :, :-1, :-1], vp[:, :, :-1, 1:],
+                          vp[:, :, 1:, :-1], vp[:, :, 1:, 1:]], dim=-1)
+        tables.append(quad.reshape(b, m, (h + 1) * (w + 1), 4 * d))
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5                            # (B, Q, M, P)
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0, y0 = x.floor(), y.floor()
+        lx, ly = x - x0, y - y0
+        x0i, y0i = x0.int(), y0.int()
+        in_range = (x0i >= -1) & (x0i <= w - 1) & (y0i >= -1) & (y0i <= h - 1)
+        idx_parts.append((y0i.clamp(-1, h - 1) + 1) * (w + 1) + (x0i.clamp(-1, w - 1) + 1)
+                         + row_off)
+        cw = torch.stack([(1 - ly) * (1 - lx), (1 - ly) * lx, ly * (1 - lx), ly * lx], dim=-1)
+        cw_parts.append(cw * (in_range.float() * weights[:, :, :, lvl])[..., None])
+        start += h * w
+        row_off += (h + 1) * (w + 1)
+    table = torch.cat(tables, dim=2)                                    # (B, M, R, 4D)
+    r = table.shape[2]
+    k = n_levels * p
+    n_rows = b * q * m * k
+    off = (torch.arange(b * m, device=value.device) * r).reshape(b, 1, m, 1, 1)
+    flat_idx = (torch.stack(idx_parts, dim=3).long() + off).reshape(n_rows)
+    cw = torch.stack(cw_parts, dim=3).reshape(n_rows, 4).to(table.dtype)
+    g = table.reshape(b * m * r, 4 * d).index_select(0, flat_idx)
+    seg = msda_weighted_segment_sum(g, cw, k)                            # (B*Q*M, 4D) f32
+    return seg.reshape(b, q, m, 4, d).sum(3).reshape(b, q, m * d).to(value.dtype)
+
+
+MSDA_METHODS = ("fused", "flat4")
+
+
 def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
-                   sampling_locations, attention_weights) -> torch.Tensor:
-    """(B, S, M, D) values sampled at (B, Q, M, L, P, 2) -> (B, Q, M*D)."""
+                   sampling_locations, attention_weights, method: str = "fused") -> torch.Tensor:
+    """(B, S, M, D) values sampled at (B, Q, M, L, P, 2) -> (B, Q, M*D).
+
+    ``method`` "fused" runs kernel K-B (the plain ``grid_sample`` version on a
+    CPU tensor); "flat4" runs ``ms_deform_attn_flat4``, whose reduce is kernel
+    K-C on a CUDA tensor.
+    """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if method == "flat4":
+        return ms_deform_attn_flat4(value, spatial_shapes, sampling_locations, attention_weights)
+    if method != "fused":
+        raise ValueError(f"ms_deform_attn: method must be one of {MSDA_METHODS}, got {method!r}")
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                     attention_weights)

@@ -13,6 +13,12 @@ Inputs are made with numpy from a seed. Tolerances:
   * K-B: both read the same values and sample in f32; they differ only in
     summation order: 1e-5 in f32, and one bf16 output rounding (1e-2 at
     magnitude ~1) in bf16.
+  * K-C: both read the same values and sum in f32: summation order only, 1e-5
+    (relative and absolute) in both dtypes.
+  * ``flat4`` against K-B: in f32 summation order only (1e-5). In bf16 flat4
+    rounds each corner weight to bf16 (2^-9 relative), and the weights of a
+    (query, head) sum to at most 1, which bounds that part by 2^-9 max|value|;
+    each side then rounds its output to bf16 (2^-9 relative each).
 """
 
 import numpy as np
@@ -21,6 +27,7 @@ import torch
 
 from hipie_torch import kernels
 from hipie_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
 from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +108,59 @@ def test_ms_deform_attn_kernel_rejects_f16(dev):
     value, loc, w = _msda_inputs(1, 5, 2, 8, ((4, 4),), 2, 0, dev, torch.float16)
     with pytest.raises(ValueError):
         ms_deform_attn(value, ((4, 4),), loc, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,k,fd", [
+    (96, 16, 32),               # 8 of 32 lanes busy
+    (4092, 12, 64),             # K = 12, a last block with few segments
+    (112, 16, 36),              # d = 9: corners straddle a lane's 4 columns
+    (800, 16, 256),             # 4d > 128: two column groups per lane
+    (300 * 8 * 16, 16, 128),    # MaskDINO decoder rows at the R50 path's shape
+    (910 * 8 * 16, 16, 128),    # decoder rows
+])
+def test_msda_reduce_kernel_matches_plain(dev, dtype, n, k, fd):
+    r = np.random.RandomState(n + fd)
+    g = torch.from_numpy(r.randn(n, fd).astype(np.float32)).to(dev, dtype)
+    cw = torch.from_numpy(r.uniform(0, 1, (n, 4)).astype(np.float32)).to(dev, dtype)
+    before = kernels.LAUNCHES["msda_reduce"]
+    got = msda_weighted_segment_sum(g, cw, k)
+    assert kernels.LAUNCHES["msda_reduce"] == before + 1
+    want = msda_weighted_segment_sum_plain(g, cw, k)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (n // k, fd) and got.is_cuda
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_msda_reduce_kernel_rejects_what_it_does_not_take(dev):
+    g = torch.zeros(64, 32, device=dev)
+    cw = torch.zeros(64, 4, device=dev)
+    for args in ((g[:60], cw[:60], 16),                      # N % K != 0
+                 (g.half(), cw.half(), 16),                   # f16
+                 (g, cw.bfloat16(), 16),                      # mixed dtypes
+                 (g[:, :30], cw, 16),                         # 4d % 4 != 0
+                 (g.t().contiguous().t(), cw, 16),            # not contiguous
+                 (g, cw[:, :3], 16)):                         # cw not (N, 4)
+        with pytest.raises(ValueError):
+            msda_weighted_segment_sum(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("q", [300, 910, None])
+def test_flat4_matches_fused(dev, dtype, q):
+    """flat4 on the card reaches K-C and never K-B; Q = None is the encoder (Q = S)."""
+    shapes = ENC_SHAPES
+    s = sum(h * w for h, w in shapes)
+    value, loc, w = _msda_inputs(1, q or s, 8, 32, shapes, 4, 7, dev, dtype)
+    counts = dict(kernels.LAUNCHES)
+    got = ms_deform_attn(value, shapes, loc, w, method="flat4")
+    assert kernels.LAUNCHES["msda_reduce"] == counts["msda_reduce"] + 1
+    assert kernels.LAUNCHES["ms_deform_attn"] == counts["ms_deform_attn"]
+    want = ms_deform_attn(value, shapes, loc, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape and got.is_cuda
+    if dtype == torch.float32:
+        tol = 1e-5
+    else:
+        tol = 2 ** -9 * (value.float().abs().max().item() + 2 * want.float().abs().max().item())
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)

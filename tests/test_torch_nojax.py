@@ -42,6 +42,35 @@ assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
 print("NOJAX_OK")
 """
 
+# The predictor on the tiny config (a ResNet-50 backbone): the host side uses
+# the JAX package's numpy prompt builders and tokenizer, which import no JAX.
+PREDICTOR = r"""
+import sys
+import numpy as np
+import torch
+from hipie_tpu.config import apply_overrides, tiny_test_config
+from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
+from hipie_torch.models.hipie import HIPIEModel
+from hipie_torch.predictor import HIPIEPredictor, PartSegmDemo
+from hipie_torch.utils.weights import random_init_
+
+cfg = apply_overrides(tiny_test_config(), {
+    "data.min_size_test": 48, "data.max_size_test": 96,
+    "data.max_text_len": 16, "model.text.max_query_len": 16})
+model = HIPIEModel(cfg.model).eval()
+random_init_(model, torch.Generator().manual_seed(0))
+tok = WordPieceTokenizer.toy(words=["person", "dog", "sky", "head"])
+pred = HIPIEPredictor(cfg, model, tok, bucket=(64, 96), device="cpu")
+img = np.random.RandomState(0).randint(0, 256, (50, 80, 3)).astype(np.uint8)
+res = PartSegmDemo(pred, ["head"]).forward_panoptic(img, ["person", "dog"], ["sky"], do_part=True)
+assert res["panoptic_seg"][0].shape == (50, 80) and res["parts"]["part_sem_seg"].shape == (50, 80)
+res = pred(img, task="grounding", expressions="the dog")
+assert res["instances"]["masks"].shape == (1, 50, 80)
+assert "jax" not in sys.modules and "flax" not in sys.modules and "cv2" not in sys.modules, sorted(
+    m for m in sys.modules if m.startswith(("jax", "flax", "cv2")))
+print("NOJAX_OK")
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -49,11 +78,19 @@ def _env():
     return env
 
 
-def test_tiny_slice_runs_without_jax():
-    r = subprocess.run([sys.executable, "-c", TINY_SLICE], cwd=REPO, env=_env(),
+def _run_without_jax(script):
+    r = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=_env(),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     assert "NOJAX_OK" in r.stdout
+
+
+def test_tiny_slice_runs_without_jax():
+    _run_without_jax(TINY_SLICE)
+
+
+def test_predictor_runs_without_jax():
+    _run_without_jax(PREDICTOR)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
