@@ -11,7 +11,11 @@ prints no result line):
     shared-memory report.
  3. kernels: every kernel of the serving paths against its plain PyTorch
     version on the card at the paths' shapes, with max errors, tolerances and
-    times (CUDA events); and the ``flat4`` MSDA formulation (K-C) against the
+    times (CUDA events); each kernel's bound (operations over the peak rate of
+    their type, or bytes over the HBM rate, whichever is larger) and, where one
+    PyTorch call computes the same function, that call's time (SDPA with the
+    rel-pos bias prebuilt as a bf16 mask for K-A, einsum for K-C; the port
+    never calls them); and the ``flat4`` MSDA formulation (K-C) against the
     fused one (K-B) at the R50 encoder shape.
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
     the same weights run on the CPU through the plain versions, once with
@@ -20,7 +24,8 @@ prints no result line):
     random weights from a seeded torch.Generator; the 256-token class prompt is
     encoded once, then 3 distinct 1024x1024 uint8 images are answered through
     HIPIEModel.forward(..., lang_hidden=...) and hipie_inference. The kernels'
-    launch counts over those requests must be exactly the path's.
+    launch counts over those requests must be exactly the path's, and K-A's
+    time per request is summed from CUDA events around its launches.
  6. predict: HIPIEPredictor over HIPIEModel(r50_coco_panoptic()) at full width
     in bf16 with seeded random weights and the toy tokenizer over the COCO
     panoptic words, on distinct 480x640 uint8 images (resized to 800x1067,
@@ -36,6 +41,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -54,6 +60,10 @@ R50_IMAGE = (480, 640)
 R50_BUCKET = (800, 1216)
 R50_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
 R50_S = sum(h * w for h, w in R50_LEVELS)          # 20197 encoder queries
+# Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
+PEAK_BF16_TENSOR = 989e12        # FLOP/s, dense bf16 on the tensor cores
+PEAK_F32 = 67e12                 # FLOP/s, f32 outside the tensor cores
+PEAK_HBM = 3.35e12               # bytes/s
 
 
 def log(*a):
@@ -72,10 +82,47 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_device():
+def bound(flops: float, nbytes: float, flop_rate: float, unit: str) -> dict:
+    """Least time for the work: the larger of the operations over the peak rate
+    of their type and the bytes (each input read once, each output written
+    once) over the HBM rate."""
+    ops_ms, bytes_ms = 1e3 * flops / flop_rate, 1e3 * nbytes / PEAK_HBM
+    by_ops = ops_ms >= bytes_ms
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if by_ops else "bytes",
+            "bound_unit": unit if by_ops else "HBM", "bound_flops": flops, "bound_bytes": nbytes}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_attention(what, got, want):
+    """(max abs err, tol, relative norm err) of a ViT attention output against
+    the plain version; raises past either limit. A softmax over thousands of
+    keys gives small outputs (std ~0.03 at the ViT-H shape), so the limits
+    scale with the output: 2^-6 max|want| is 2-4 bf16 ulps of the largest
+    output (each side rounds P and the output to bf16, at other points), and
+    a relative norm error of 1e-2 catches a scale error or a dropped 128-key
+    tile (>= 3% at N = 4096)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    tol = 2 ** -6 * w.abs().max().item()
+    rel = ((g - w).norm() / w.norm()).item()
+    if not (err <= tol and rel <= 1e-2):
+        raise AssertionError(f"{what} disagrees with the plain version: max abs err {err} "
+                             f"(tol {tol}), relative norm err {rel} (tol 1e-2)")
+    return err, tol, rel
+
+
+def phase_device():
+    card = card_name()
     log(card)
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
@@ -93,8 +140,10 @@ def phase_build():
     build.load()
 
 
-def phase_kernels(dev):
-    """Each kernel vs its plain version at the serving path's shapes."""
+def phase_kernels(dev, card):
+    """Each kernel vs its plain version at the serving path's shapes, with its
+    bound and the time of the one PyTorch call that computes the same function
+    (timed here only, never called by the port)."""
     from hipie_torch import kernels
     from hipie_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
@@ -113,20 +162,35 @@ def phase_kernels(dev):
     got = vit_global_attention(q, k, v, rh, rw, scale)
     want = vit_attention_plain(q, k, v, rh, rw, scale)
     torch.cuda.synchronize()
-    err = (got.float() - want.float()).abs().max().item()
-    rel = err / want.float().abs().max().item()
-    tol = 2e-2   # bf16 output rounding + fast exp + summation order, outputs ~1
-    ms = cuda_time_ms(lambda: vit_global_attention(q, k, v, rh, rw, scale), 10)
+    err, tol, rel = check_attention("vit_attention", got, want)
+    ms = cuda_time_ms(lambda: vit_global_attention(q, k, v, rh, rw, scale), 20)
     plain_ms = cuda_time_ms(lambda: vit_attention_plain(q, k, v, rh, rw, scale), 5)
+    # library yardstick: SDPA with the bias materialised once as a bf16 mask
+    make_bias = lambda: (rh[:, :, :, None] + rw[:, :, None, :]).reshape(1, bh, n, n)
+    bias_ms = cuda_time_ms(make_bias, 5)
+    bias = make_bias()
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q.view(1, bh, n, hd), k.view(1, bh, n, hd), v.view(1, bh, n, hd), attn_mask=bias,
+        scale=scale)
+    lib_err, _, lib_rel = check_attention("the SDPA yardstick", sdpa()[0], want)
+    library_ms = cuda_time_ms(sdpa, 10)
+    b = bound(4.0 * bh * n * n * hd, nbytes(q, k, v, rh, rw, got), PEAK_BF16_TENSOR,
+              "tensor cores")
     log(f"[kernels] vit_attention BH={bh} N={n} hd={hd} Kh=Kw={kh} bf16: max abs err {err:.3e} "
-        f"(rel {rel:.3e}, tol {tol}), kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if not err <= tol:
-        raise AssertionError(f"vit_attention disagrees with its plain version: {err} > {tol}")
+        f"(tol {tol:.3e}; relative norm err {rel:.3e}, tol 1e-2), kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, SDPA with a prebuilt bf16 mask {library_ms:.4f} ms (max abs err "
+        f"{lib_err:.3e}, relative norm err {lib_rel:.3e}), mask build "
+        f"{bias_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
+        f"{b['bound_flops'] / 1e9:.1f} GFLOP, {b['bound_bytes'] / 1e6:.1f} MB), kernel at "
+        f"{100 * b['bound_ms'] / ms:.1f}% of the bound, {library_ms / ms:.2f}x faster than SDPA; "
+        f"card {card}")
     records.append({"name": "vit_attention", "route": "cuda",
                     "source": "hipie_torch/csrc/vit_attention.cu",
                     "replaces": "hipie_tpu/ops/pallas/vit_attention_kernel.py:148",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
-    del q, k, v, rh, rw, got, want
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
+                    "library_ms": library_ms, "library_call": "scaled_dot_product_attention",
+                    "library_bias_build_ms": bias_ms})
+    del q, k, v, rh, rw, got, want, bias
 
     # K-B: encoder (Q = S), decoder (Q = 910) and MaskDINO decoder (Q = 300) shapes.
     shapes = ((128, 128), (64, 64), (32, 32), (16, 16))
@@ -157,10 +221,16 @@ def phase_kernels(dev):
             raise AssertionError(f"ms_deform_attn disagrees with its plain version: {err} > {tol}")
         max_err = max(max_err, err)
         if msda is None:          # the record carries the encoder bf16 shape's times
+            # per sample: 4 corners x D channels, a multiply-add each, in f32
+            b = bound(8.0 * qn * m * n_levels * p * d, nbytes(value, loc, w, got), PEAK_F32,
+                      "f32 cores")
+            log(f"[kernels] ms_deform_attn bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
+                f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / ms:.1f}% of "
+                f"the bound; no single PyTorch call computes MSDA (library_ms null)")
             msda = {"name": "ms_deform_attn", "route": "cuda",
                     "source": "hipie_torch/csrc/ms_deform_attn.cu",
                     "replaces": "hipie_tpu/ops/ms_deform_attn.py:719",
-                    "ms": ms, "plain_ms": plain_ms}
+                    "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
     msda["max_abs_err"] = max_err
     records.append(msda)
     records.append(_check_msda_reduce(dev))
@@ -198,10 +268,23 @@ def _check_msda_reduce(dev):
             raise AssertionError(f"msda_reduce disagrees with its plain version: {err} > {tol}")
         max_err = max(max_err, err)
         if rec is None:           # the record carries the encoder bf16 shape's times
+            s, d = n // k, fd // 4
+            lib = lambda: torch.einsum("skcd,skc->scd", g.view(s, k, 4, d),
+                                       cw.view(s, k, 4)).reshape(s, fd)
+            lib_err = (lib().float() - want).abs().max().item()
+            lib_tol = 2 ** -7 * scale      # einsum rounds its output to the input's bf16
+            if not lib_err <= lib_tol:
+                raise AssertionError(f"einsum yardstick disagrees: {lib_err} > {lib_tol}")
+            library_ms = cuda_time_ms(lib, 10)
+            b = bound(2.0 * n * fd, nbytes(g, cw, got), PEAK_F32, "f32 cores")
+            log(f"[kernels] msda_reduce bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
+                f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / ms:.1f}% of "
+                f"the bound; einsum {library_ms:.4f} ms (max abs err {lib_err:.3e})")
             rec = {"name": "msda_reduce", "route": "cuda",
                    "source": "hipie_torch/csrc/msda_reduce.cu",
                    "replaces": "hipie_tpu/ops/pallas/msda_reduce_kernel.py:88",
-                   "ms": ms, "plain_ms": plain_ms}
+                   "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms,
+                   "library_call": "einsum"}
         del g, cw, got, want
     rec["max_abs_err"] = max_err
     return rec
@@ -248,7 +331,7 @@ def _check_flat4(dev, rng):
 
 
 def _tiny_config():
-    from hipie_tpu.config import apply_overrides, tiny_test_config
+    from hipie_torch.config import apply_overrides, tiny_test_config
     from hipie_torch.models.backbone.vit import VIT_VARIANTS
 
     VIT_VARIANTS.setdefault("vit_narrow", (64, 4, 4, 0.0))
@@ -325,53 +408,104 @@ def check_result(res, cfg):
         raise AssertionError("panoptic ids exceed the segment count")
 
 
-def phase_serve(dev, card):
-    from hipie_torch import kernels
+@contextlib.contextmanager
+def timing_vit_attention():
+    """Within the block the ViT calls K-A's wrapper with a pair of CUDA events
+    around each call; yields the list the (start, end) pairs go to."""
+    import hipie_torch.models.backbone.vit as vit_module
+    from hipie_torch.ops.vit_attention import vit_global_attention
+
+    events = []
+
+    def wrapped(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = vit_global_attention(*args)
+        end.record()
+        events.append((start, end))
+        return out
+
+    plain = vit_module.vit_global_attention
+    vit_module.vit_global_attention = wrapped
+    try:
+        yield events
+    finally:
+        vit_module.vit_global_attention = plain
+
+
+def vit_huge_server(dev, seed: int = SEED):
+    """HIPIEModel(vit_huge_coco_panoptic()) at full width in bf16 with random
+    weights from a seeded torch.Generator, and ``request(img)``, which answers
+    one (1, 1024, 1024, 3) uint8 image with a synthetic 256-token prompt (its
+    text features encoded once, here) and a 133-class map. Returns
+    (cfg, model, request); call ``request`` under torch.inference_mode()."""
     from hipie_torch.models.hipie import HIPIEModel, hipie_inference
-    from hipie_tpu.presets import vit_huge_coco_panoptic
+    from hipie_torch.presets import vit_huge_coco_panoptic
     from hipie_torch.utils.weights import random_init_
 
     cfg = vit_huge_coco_panoptic()
     mc = cfg.model
-    t0 = time.perf_counter()
     with torch.device(dev):
         model = HIPIEModel(mc).eval()
-    random_init_(model, torch.Generator(device=dev).manual_seed(SEED))
+    random_init_(model, torch.Generator(device=dev).manual_seed(seed))
     model.to(torch.bfloat16)
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serve] HIPIEModel(vit_huge_coco_panoptic) {n_params / 1e6:.1f} M params, bf16, "
-        f"built in {time.perf_counter() - t0:.1f} s")
-
     L = mc.text.max_query_len
     ids = torch.from_numpy((np.arange(L) % 1000 + 999)[None]).to(dev)
     am = torch.ones(1, L, dtype=torch.long, device=dev)
     maps = class_maps(L, dev)
     pad = torch.zeros(1, IMG, IMG, dtype=torch.bool, device=dev)
     sizes = torch.tensor([[IMG, IMG]], device=dev)
-    rng = np.random.RandomState(SEED + 1)
-    images = [torch.from_numpy(rng.randint(0, 256, (1, IMG, IMG, 3), dtype=np.uint8))
-              for _ in range(N_REQUESTS)]
+    with torch.inference_mode():
+        lang_hidden = model.encode_text(ids, am)
+
+    def request(img):
+        out = model(img.to(dev), pad, ids, am, sizes, lang_hidden=lang_hidden)
+        return hipie_inference(out, maps, cfg.test, mc, pad_mask_s4=pad[0][::4, ::4])
+
+    return cfg, model, request
+
+
+def serve_images(n: int, seed: int = SEED):
+    rng = np.random.RandomState(seed + 1)
+    return [torch.from_numpy(rng.randint(0, 256, (1, IMG, IMG, 3), dtype=np.uint8))
+            for _ in range(n)]
+
+
+def phase_serve(dev, card):
+    from hipie_torch import kernels
+
+    t0 = time.perf_counter()
+    cfg, model, request = vit_huge_server(dev)
+    mc = cfg.model
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[serve] HIPIEModel(vit_huge_coco_panoptic) {n_params / 1e6:.1f} M params, bf16, "
+        f"built in {time.perf_counter() - t0:.1f} s")
 
     n_global = sum(1 for b in model.detr.detr.backbone[0].backbone.blocks if b.window_size == 0)
     n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
               + mc.maskdino.dec_layers)
     torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        lang_hidden = model.encode_text(ids, am)
         kernels.reset_launch_counts()
-        times = []
-        for img in images:
-            t0 = time.perf_counter()
-            out = model(img.to(dev), pad, ids, am, sizes, lang_hidden=lang_hidden)
-            res = hipie_inference(out, maps, cfg.test, mc, pad_mask_s4=pad[0][::4, ::4])
-            torch.cuda.synchronize()
-            times.append(1000.0 * (time.perf_counter() - t0))
+        times, ka_ms = [], []
+        for img in serve_images(N_REQUESTS):
+            with timing_vit_attention() as events:
+                t0 = time.perf_counter()
+                res = request(img)
+                torch.cuda.synchronize()
+                times.append(1000.0 * (time.perf_counter() - t0))
+            ka_ms.append(sum(a.elapsed_time(b) for a, b in events))
+            if len(events) != n_global:
+                raise AssertionError(f"{len(events)} K-A calls in a request, expected {n_global}")
             check_result(res, cfg)
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     log(f"[serve] {N_REQUESTS} requests, ms per request {[round(t, 3) for t in times]} "
         f"(first includes warm-up), peak memory {peak:.2f} GiB, card {card}")
+    log(f"[serve] K-A ms per request by CUDA events ({n_global} launches each): "
+        f"{[round(t, 4) for t in ka_ms]}; share of the request's wall time "
+        f"{[round(a / b, 4) for a, b in zip(ka_ms, times)]}")
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
     want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
@@ -380,7 +514,7 @@ def phase_serve(dev, card):
         f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    return launches
+    return launches, {name: count // N_REQUESTS for name, count in launches.items()}
 
 
 def _check_prediction(res, task):
@@ -412,13 +546,12 @@ def phase_predict(dev, card):
     from hipie_torch import kernels
     from hipie_torch.models.hipie import HIPIEModel
     from hipie_torch.predictor import HIPIEPredictor, PartSegmDemo, parse_def_string
+    from hipie_torch.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
+    from hipie_torch.data.prompts import build_prompt_spec
+    from hipie_torch.data.transforms import pad_to_bucket, resize_shortest_edge
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.presets import r50_coco_panoptic
     from hipie_torch.utils.weights import random_init_
-    from hipie_tpu.data.prompts import build_prompt_spec
-    from hipie_tpu.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
-    from hipie_tpu.data.transforms import pad_to_bucket
-    from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
-    from hipie_tpu.presets import r50_coco_panoptic
-    from hipie_torch.data.transforms import resize_shortest_edge
 
     cfg = r50_coco_panoptic()
     mc = cfg.model
@@ -543,12 +676,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    records = phase_kernels(dev)
+    records = phase_kernels(dev, card)
     phase_reference(dev)
-    launches = phase_serve(dev, card)
+    launches, per_request = phase_serve(dev, card)
     launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
     for r in records:
         r["launches"] = launches[r["name"]]
+        r["launches_per_request"] = per_request[r["name"]]
+    next(r for r in records if r["name"] == "msda_reduce")["launches_per_flat4_call"] = (
+        launches["msda_reduce"])
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ Counterpart of hipie_tpu/data/transforms.py::resize_shortest_edge (reference
 detectron2 ResizeShortestEdge at test time). The size rule is the JAX
 package's; the resize is ``F.interpolate`` bilinear with half-pixel centres,
 edge clamping and no antialiasing, which is cv2.INTER_LINEAR on a float image.
-Padding to a static bucket reuses the JAX package's numpy ``pad_to_bucket``.
+``pad_to_bucket`` is hipie_tpu/data/transforms.py's numpy padding, copied.
 """
 
 from __future__ import annotations
@@ -39,3 +39,15 @@ def resize_shortest_edge(img: np.ndarray, short: int, max_size: int):
     chw = torch.from_numpy(np.ascontiguousarray(img, dtype=np.float32)).permute(2, 0, 1)
     out = resize_bilinear(chw, (nh, nw)).permute(1, 2, 0).contiguous().numpy()
     return out, (nh / h, nw / w)
+
+
+def pad_to_bucket(img: np.ndarray, bucket_hw: Tuple[int, int]):
+    """Pad bottom/right to a static bucket; returns (padded, pad_mask)."""
+    h, w = img.shape[:2]
+    bh, bw = bucket_hw
+    assert h <= bh and w <= bw, f"image {h}x{w} exceeds bucket {bh}x{bw}"
+    out = np.zeros((bh, bw) + img.shape[2:], img.dtype)
+    out[:h, :w] = img
+    mask = np.ones((bh, bw), bool)
+    mask[:h, :w] = False
+    return out, mask

@@ -14,7 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hipie_tpu.config import BackboneConfig
+from hipie_torch.config import BackboneConfig
 from hipie_torch.layers import sine_position_embedding_2d
 from hipie_torch.models.backbone.resnet import ResNet, resnet_feature_channels
 from hipie_torch.models.backbone.vit import VIT_VARIANTS, ViTDet, vit_feature_channels

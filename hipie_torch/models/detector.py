@@ -21,7 +21,7 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from hipie_tpu.config import ModelConfig
+from hipie_torch.config import ModelConfig
 from hipie_torch.layers import MLP, ConvGN, sine_position_embedding_2d
 from hipie_torch.models.backbone import build_backbone, masked_features
 from hipie_torch.models.heads import StillClassifier, VLAlign, agg_lang_feat

@@ -15,7 +15,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 import torch.nn as nn
 
-from hipie_tpu.config import ModelConfig, TestConfig
+from hipie_torch.config import ModelConfig, TestConfig
 from hipie_torch.models.detector import HIPIEDetector
 from hipie_torch.models.postprocess import (ClassMaps, fg_instance_inference,
                                             grounding_to_od_logits, panoptic_inference,

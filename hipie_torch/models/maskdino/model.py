@@ -18,7 +18,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hipie_tpu.config import MaskDINOConfig
+from hipie_torch.config import MaskDINOConfig
 from hipie_torch.layers import MLP, ConvGN, nchw_to_nhwc, nhwc_to_nchw
 from hipie_torch.models.transformer import DeformableDecoderLayer
 from hipie_torch.utils.misc import inverse_sigmoid, sine_position_embedding_1d

@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hipie_tpu.config import TransformerConfig
+from hipie_torch.config import TransformerConfig
 from hipie_torch.layers import MLP, MultiHeadAttention
 from hipie_torch.models.fusion import BiAttentionBlock
 from hipie_torch.models.heads import FeatureResizer, agg_lang_feat

@@ -2,8 +2,8 @@
 
 Counterpart of hipie_tpu/ops/pallas/vit_attention_kernel.py. ``vit_global_attention``
 takes a CPU tensor to the plain version and a CUDA tensor to the hand-written
-kernel in ``hipie_torch/csrc/vit_attention.cu``; there is no fallback between
-the two.
+Hopper kernel in ``hipie_torch/csrc/vit_attention.cu`` (TMA loads, wgmma, online
+softmax in registers); there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -47,6 +47,9 @@ def vit_global_attention(q, k, v, rel_h, rel_w, scale: float) -> torch.Tensor:
         raise ValueError(f"vit_global_attention: Kh * Kw = {kh * kw} != N = {n}")
     if hd not in (16, 64, 80):
         raise ValueError(f"vit_global_attention: head dim {hd} not built")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("vit_global_attention: q, k and v must start on 16-byte boundaries "
+                         "(TMA)")
     from hipie_torch.kernels import build
 
     lib = build.load()

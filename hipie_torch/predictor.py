@@ -3,7 +3,7 @@ masks, or the instance a referring expression names.
 
 Counterpart of hipie_tpu/predictor.py (reference projects/HIPIE/predictor.py
 and demo_lib/part_segm_demo.py). The host tokenizes, builds the prompt's class
-maps (the JAX package's numpy prompt builders) and resizes and pads the image;
+maps (``hipie_torch.data.prompts``, numpy) and resizes and pads the image;
 the model, ``hipie_inference`` and the rescale of masks and maps to the
 original resolution run on the predictor's device. Results are numpy, as the
 JAX predictor gives them.
@@ -18,13 +18,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from hipie_tpu.config import HIPIEConfig
-from hipie_tpu.data.prompts import PromptSpec, build_prompt_spec, grounding_prompt_spec
-from hipie_tpu.data.transforms import pad_to_bucket
-from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
-from hipie_torch.data.transforms import resize_bilinear, resize_shortest_edge
+from hipie_torch.config import HIPIEConfig
+from hipie_torch.data.prompts import PromptSpec, build_prompt_spec, grounding_prompt_spec
+from hipie_torch.data.transforms import pad_to_bucket, resize_bilinear, resize_shortest_edge
 from hipie_torch.models.hipie import HIPIEModel, InferenceResult, hipie_inference
-from hipie_torch.models.postprocess import ClassMaps
+from hipie_torch.models.text.tokenizer import WordPieceTokenizer
 
 
 def parse_def_string(defs: Sequence[str]) -> Tuple[List[str], List[bool]]:
@@ -43,22 +41,25 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 
 class HIPIEPredictor:
-    """Runs ``model`` (a hipie_torch HIPIEModel, on ``device`` in its own dtype)
-    on one image padded to ``bucket``. CLIP ensembling and language-derived bg
-    queries are not ported yet and raise."""
+    """Runs ``model`` (a hipie_torch HIPIEModel, in its own dtype) on one image
+    padded to ``bucket``. The model is moved to ``device``, the card unless the
+    caller passes ``device="cpu"``; without a card the default raises. CLIP
+    ensembling and language-derived bg queries are not ported yet and raise."""
 
     def __init__(self, cfg: HIPIEConfig, model: HIPIEModel, tokenizer: WordPieceTokenizer,
-                 bucket: Tuple[int, int] = (800, 1216), device=None):
+                 bucket: Tuple[int, int] = (800, 1216), device="cuda"):
         if cfg.model.clip.enabled:
             raise NotImplementedError("MODEL.CLIP (open-vocab CLIP ensembling) is not ported yet")
         if cfg.model.bg_query_from_lang:
             raise NotImplementedError("language-derived bg queries are not ported yet")
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("HIPIEPredictor: no CUDA device; pass device='cpu' to run "
+                               "on the CPU")
         self.cfg = cfg
-        self.model = model
+        self.model = model.to(self.device)
         self.tok = tokenizer
         self.bucket = bucket
-        self.device = (torch.device(device) if device is not None
-                       else next(model.parameters()).device)
 
     def _run(self, spec: PromptSpec, img: np.ndarray, task: str,
              has_thing: bool) -> Tuple[InferenceResult, Tuple[int, int]]:
@@ -68,7 +69,7 @@ class HIPIEPredictor:
         h, w = resized.shape[:2]
         padded, pad_mask = pad_to_bucket(resized, self.bucket)
         to_dev = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
-        maps = ClassMaps(to_dev(spec.mean_weights), to_dev(spec.token_mask), to_dev(spec.is_thing))
+        maps = spec.class_maps(dev)
         with torch.inference_mode():
             pad = to_dev(pad_mask[None])
             out = self.model(to_dev(padded[None]), pad, to_dev(spec.input_ids[None]).long(),

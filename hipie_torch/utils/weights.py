@@ -1,8 +1,9 @@
 """Carry weights across from the JAX package.
 
-``export_hipie_checkpoint`` (numpy only) turns a hipie_tpu parameter tree into
-a torch-layout state_dict under the reference's names, which is exactly the
-port's module tree, so a strict load is the whole bridge.
+``hipie_torch.utils.export.export_hipie_checkpoint`` (numpy only, the port's
+copy of the JAX package's) turns a hipie_tpu parameter tree, given as numpy
+arrays, into a torch-layout state_dict under the reference's names, which is
+exactly the port's module tree, so a strict load is the whole bridge.
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Any, Dict
 
 import torch
 
-from hipie_tpu.utils.export import export_hipie_checkpoint
+from hipie_torch.utils.export import export_hipie_checkpoint
 
 
 _KEEP_INIT = ("sampling_offsets.bias", "attention_weights.bias")

@@ -1,20 +1,32 @@
-"""The port runs without JAX, and chip_smoke.py refuses to run without a card.
+"""The port stands alone: it runs without JAX and without the JAX package,
+imports neither anywhere, serves on the card by default, and chip_smoke.py
+refuses to run without a card.
 
-Both run in fresh interpreters, so nothing this test process imported leaks in.
+The runs are in fresh interpreters, so nothing this test process imported
+leaks in; there ``sys.modules["hipie_tpu"] = None`` makes any import of the JAX
+package fail.
 """
 
+import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
 
-REPO = Path(__file__).resolve().parent.parent
+import pytest
 
-TINY_SLICE = r"""
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("hipie_tpu", "jax", "flax")
+
+BLOCK_JAX_PACKAGE = r"""
 import sys
+sys.modules["hipie_tpu"] = None        # any import of the JAX package now fails
+"""
+
+TINY_SLICE = BLOCK_JAX_PACKAGE + r"""
 import numpy as np
 import torch
-from hipie_tpu.config import apply_overrides, tiny_test_config
+from hipie_torch.config import apply_overrides, tiny_test_config
 from hipie_torch.models.backbone.vit import VIT_VARIANTS
 from hipie_torch.models.hipie import HIPIEModel, hipie_inference
 from hipie_torch.models.postprocess import ClassMaps
@@ -37,19 +49,18 @@ with torch.inference_mode():
     out = model(img, pad, ids, am, torch.tensor([[128, 128]]), lang_hidden=hidden)
     res = hipie_inference(out, maps, cfg.test, cfg.model, pad_mask_s4=pad[0][::4, ::4])
 assert res.sem_seg.shape == (C, 32, 32) and torch.isfinite(res.sem_seg).all()
-assert "jax" not in sys.modules and "flax" not in sys.modules, sorted(
-    m for m in sys.modules if m.startswith(("jax", "flax")))
+assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
+            or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
 print("NOJAX_OK")
 """
 
-# The predictor on the tiny config (a ResNet-50 backbone): the host side uses
-# the JAX package's numpy prompt builders and tokenizer, which import no JAX.
-PREDICTOR = r"""
-import sys
+# The predictor on the tiny config (a ResNet-50 backbone), with the port's own
+# config, tokenizer and prompt builders.
+PREDICTOR = BLOCK_JAX_PACKAGE + r"""
 import numpy as np
 import torch
-from hipie_tpu.config import apply_overrides, tiny_test_config
-from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
+from hipie_torch.config import apply_overrides, tiny_test_config
+from hipie_torch.models.text.tokenizer import WordPieceTokenizer
 from hipie_torch.models.hipie import HIPIEModel
 from hipie_torch.predictor import HIPIEPredictor, PartSegmDemo
 from hipie_torch.utils.weights import random_init_
@@ -66,8 +77,8 @@ res = PartSegmDemo(pred, ["head"]).forward_panoptic(img, ["person", "dog"], ["sk
 assert res["panoptic_seg"][0].shape == (50, 80) and res["parts"]["part_sem_seg"].shape == (50, 80)
 res = pred(img, task="grounding", expressions="the dog")
 assert res["instances"]["masks"].shape == (1, 50, 80)
-assert "jax" not in sys.modules and "flax" not in sys.modules and "cv2" not in sys.modules, sorted(
-    m for m in sys.modules if m.startswith(("jax", "flax", "cv2")))
+assert not [m for m in sys.modules if m.startswith(("jax", "flax", "cv2"))
+            or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
 print("NOJAX_OK")
 """
 
@@ -93,14 +104,71 @@ def test_predictor_runs_without_jax():
     _run_without_jax(PREDICTOR)
 
 
+def _port_sources():
+    return sorted((REPO / "hipie_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                            REPO / "profile_serve.py"]
+
+
+def _forbidden_imports(path):
+    """(line, module) of every import of hipie_tpu, jax or flax in one file."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [(node.lineno, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    return found
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    """Every import statement of hipie_torch/, chip_smoke.py and profile_serve.py, at any depth
+    (inside functions too), stays out of hipie_tpu, jax and flax."""
+    sources = _port_sources()
+    assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
+    bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}
+    assert not bad, bad
+
+
+def test_the_import_check_sees_nested_and_aliased_imports(tmp_path):
+    src = tmp_path / "probe.py"
+    src.write_text("import os\nimport jax.numpy as jnp\n\ndef f():\n"
+                   "    from hipie_tpu.config import tiny_test_config\n"
+                   "    import flax.linen, numpy\n    from . import hipie_tpu\n")
+    assert _forbidden_imports(src) == [(2, "jax.numpy"), (5, "hipie_tpu.config"),
+                                       (6, "flax.linen")]
+
+
+def test_predictor_defaults_to_the_card():
+    """device defaults to "cuda"; without a card, building a predictor raises
+    instead of serving on the CPU, and device="cpu" is the way to ask for it."""
+    import inspect
+
+    import torch
+    from hipie_torch.config import tiny_test_config
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.predictor import HIPIEPredictor
+
+    default = inspect.signature(HIPIEPredictor).parameters["device"].default
+    assert torch.device(default).type == "cuda"
+    cfg, tok = tiny_test_config(), WordPieceTokenizer.toy()
+    model = torch.nn.Linear(2, 2)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card refusal")
+    with pytest.raises((RuntimeError, AssertionError)):
+        HIPIEPredictor(cfg, model, tok)
+    pred = HIPIEPredictor(cfg, model, tok, device="cpu")
+    assert pred.device.type == "cpu" and model.weight.device.type == "cpu"
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """Here torch finds no CUDA device: the script must exit non-zero and print
     no result line, both from the repo and alone in an empty directory."""
     import torch
 
     if torch.cuda.is_available():
-        import pytest
-
         pytest.skip("a CUDA device is present; this checks the no-card refusal")
     alone = tmp_path / "chip_smoke.py"
     alone.write_text((REPO / "chip_smoke.py").read_text())

@@ -25,18 +25,22 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from hipie_tpu.config import apply_overrides, tiny_test_config
-from hipie_tpu.models.text.tokenizer import WordPieceTokenizer
+import hipie_tpu.config as jconfig
+import hipie_tpu.data.prompts as jprompts
+import hipie_torch.config as tconfig
+import hipie_torch.data.prompts as tprompts
+from hipie_torch.models.text.tokenizer import WordPieceTokenizer
 
 BUCKET = (64, 96)
 CATS = ["person", "dog", "sky:stuff", "grass:stuff"]
 WORDS = ["person", "dog", "sky", "grass", "head", "tail"]
+OVERRIDES = {"data.min_size_test": 48, "data.max_size_test": 96,
+             "data.max_text_len": 16, "model.text.max_query_len": 16}
 
 
-def predictor_config():
-    return apply_overrides(tiny_test_config(), {
-        "data.min_size_test": 48, "data.max_size_test": 96,
-        "data.max_text_len": 16, "model.text.max_query_len": 16})
+def predictor_config(pkg=tconfig):
+    """The port's config (or, with ``pkg=jconfig``, the JAX package's), same overrides."""
+    return pkg.apply_overrides(pkg.tiny_test_config(), OVERRIDES)
 
 
 def image(seed, h=50, w=80):
@@ -57,18 +61,18 @@ def both():
     with pytest.MonkeyPatch.context() as mp:
         for var in ("HIPIE_MSDA_METHOD", "HIPIE_GELU", "HIPIE_VIT_FLASH", "HIPIE_VIT_ATTN"):
             mp.delenv(var, raising=False)
-        cfg = predictor_config()
+        cfg, jcfg = predictor_config(), predictor_config(jconfig)
         tok = WordPieceTokenizer.toy(words=WORDS)
         L = cfg.data.max_text_len
-        jm = JModel(cfg.model)
+        jm = JModel(jcfg.model)
         params = jax.jit(jm.init)(
             jax.random.PRNGKey(0), jnp.zeros((1,) + BUCKET + (3,)), jnp.zeros((1,) + BUCKET, bool),
             jnp.zeros((1, L), jnp.int32), jnp.ones((1, L), jnp.int32), jnp.asarray([BUCKET]))
-        jpred = JPredictor(cfg, params, tok, bucket=BUCKET)
+        jpred = JPredictor(jcfg, params, tok, bucket=BUCKET)
 
         model = HIPIEModel(cfg.model).eval()
         params_np = jax.device_get(params)["params"]
-        keys = (set(export_hipie_checkpoint(params_np, cfg)), set(model.state_dict()))
+        keys = (set(export_hipie_checkpoint(params_np, jcfg)), set(model.state_dict()))
         load_from_jax(model, params_np, cfg)
         pred = HIPIEPredictor(cfg, model, tok, bucket=BUCKET, device="cpu")
 
@@ -78,22 +82,23 @@ def both():
         for task, spec_args in (("detection", dict(test_categories=CATS)),
                                 ("grounding", dict(expressions="the dog on the grass"))):
             spec, has_thing = _spec(pred, task, **spec_args)
+            jspec, _ = _spec(pred, task, prompts=jprompts, **spec_args)
             img = image(7)
-            jres, jhw = jpred._run(spec, img, task, has_thing)
+            jres, jhw = jpred._run(jspec, img, task, has_thing)
             tres, thw = pred._run(spec, img, task, has_thing)
             runs[task] = (jres, jhw, tres, thw)
-    return cfg, tok, model, pred, keys, runs, params
+    return cfg, tok, model, pred, keys, runs, params, jcfg
 
 
-def _spec(pred, task, test_categories=None, expressions=None):
-    from hipie_tpu.data.prompts import build_prompt_spec, grounding_prompt_spec
+def _spec(pred, task, test_categories=None, expressions=None, prompts=tprompts):
+    """The port's prompt spec, or with ``prompts=jprompts`` the JAX package's."""
     from hipie_torch.predictor import parse_def_string
 
     L = pred.cfg.data.max_text_len
     if task == "grounding":
-        return grounding_prompt_spec(expressions, pred.tok, L), True
+        return prompts.grounding_prompt_spec(expressions, pred.tok, L), True
     names, is_thing = parse_def_string(test_categories)
-    return build_prompt_spec(names, is_thing, pred.tok, L), any(is_thing)
+    return prompts.build_prompt_spec(names, is_thing, pred.tok, L), any(is_thing)
 
 
 def test_strict_load_has_the_same_keys(both):
@@ -147,14 +152,16 @@ def test_grounding_language_content_matches_jax(both, monkeypatch):
     for var in ("HIPIE_MSDA_METHOD", "HIPIE_GELU", "HIPIE_VIT_FLASH", "HIPIE_VIT_ATTN"):
         monkeypatch.delenv(var, raising=False)
     monkeypatch.setattr(jT, "resize_shortest_edge", resize_shortest_edge)
-    cfg, tok, model, _, _, _, params = both
-    cfg = apply_overrides(cfg, {"model.transformer.still_tgt_for_both": False})
+    cfg, tok, model, _, _, _, params, jcfg = both
+    override = {"model.transformer.still_tgt_for_both": False}
+    cfg, jcfg = tconfig.apply_overrides(cfg, override), jconfig.apply_overrides(jcfg, override)
     lang = HIPIEModel(cfg.model).eval()
     lang.load_state_dict(model.state_dict(), strict=True)
-    pred = HIPIEPredictor(cfg, lang, tok, bucket=BUCKET)
+    pred = HIPIEPredictor(cfg, lang, tok, bucket=BUCKET, device="cpu")
     spec, has_thing = _spec(pred, "grounding", expressions="the dog on the grass")
+    jspec, _ = _spec(pred, "grounding", expressions="the dog on the grass", prompts=jprompts)
     img = image(7)                  # the fixture's grounding image
-    jres, _ = JPredictor(cfg, params, tok, bucket=BUCKET)._run(spec, img, "grounding", has_thing)
+    jres, _ = JPredictor(jcfg, params, tok, bucket=BUCKET)._run(jspec, img, "grounding", has_thing)
     tres, _ = pred._run(spec, img, "grounding", has_thing)
     _, _, ref, _ = both[5]["grounding"]
     assert not np.allclose(tres.boxes.numpy(), ref.boxes.numpy()), "the branch changed nothing"
@@ -181,7 +188,8 @@ def test_flat4_model_matches_fused(both):
     spec, has_thing = _spec(pred, "detection", test_categories=CATS)
     img = image(8)
     a, _ = pred._run(spec, img, "detection", has_thing)
-    b, _ = HIPIEPredictor(cfg, flat4, tok, bucket=BUCKET)._run(spec, img, "detection", has_thing)
+    b, _ = HIPIEPredictor(cfg, flat4, tok, bucket=BUCKET, device="cpu")._run(
+        spec, img, "detection", has_thing)
     for name in ("scores", "boxes", "sem_seg"):
         _close(getattr(b, name), getattr(a, name).numpy(), 1e-4, name)
     _close(b.mask_logits, a.mask_logits.numpy(), 1e-3, "mask_logits", of_scale=True)
@@ -280,7 +288,7 @@ def test_parse_def_string():
 def test_predictor_refuses_unported_options(override):
     from hipie_torch.predictor import HIPIEPredictor
 
-    cfg = apply_overrides(predictor_config(), {override: True})
+    cfg = tconfig.apply_overrides(predictor_config(), {override: True})
     with pytest.raises(NotImplementedError):
         HIPIEPredictor(cfg, torch.nn.Linear(1, 1), WordPieceTokenizer.toy(), device="cpu")
 

@@ -115,14 +115,15 @@ def test_build_backbone_takes_every_resnet_name():
     """JAX tests name.startswith("resnet") first: "resnet_tiny" (the tiny test
     config's) builds a ResNet of resnet_depth in both packages, same channels."""
     import jax.numpy as jnp
-    from hipie_tpu.config import tiny_test_config
+    from hipie_tpu.config import tiny_test_config as j_tiny
     from hipie_tpu.models.backbone import build_backbone as j_build
+    from hipie_torch.config import tiny_test_config
     from hipie_torch.models.backbone import build_backbone
     from hipie_torch.models.backbone.resnet import ResNet
 
     bc = tiny_test_config().model.backbone
     assert bc.name == "resnet_tiny"
     mod, chans = build_backbone(bc)
-    jmod, jchans = j_build(bc, jnp.float32)
+    jmod, jchans = j_build(j_tiny().model.backbone, jnp.float32)
     assert isinstance(mod, ResNet) and type(jmod).__name__ == "ResNet"
     assert chans == jchans == {"res3": 512, "res4": 1024, "res5": 2048}

@@ -19,14 +19,16 @@ import jax
 import jax.numpy as jnp
 import torch
 
-from hipie_tpu.config import apply_overrides, tiny_test_config
+import hipie_tpu.config as jconfig
+import hipie_torch.config as tconfig
 
 NARROW = (64, 4, 4, 0.0)
 B, H, W, L, C = 1, 128, 128, 16, 5
 
 
-def slice_config():
-    return apply_overrides(tiny_test_config(), {
+def slice_config(pkg=tconfig):
+    """The port's config (or, with ``pkg=jconfig``, the JAX package's), same overrides."""
+    return pkg.apply_overrides(pkg.tiny_test_config(), {
         "model.backbone.name": "vit_narrow", "model.backbone.vit_img_size": 128,
         "model.backbone.vit_window_size": 4, "model.still_cls_for_encoder": True})
 
@@ -69,12 +71,12 @@ def both():
             mp.delenv(var, raising=False)
         mp.setitem(jvit.VIT_VARIANTS, "vit_narrow", NARROW)
         mp.setitem(tvit.VIT_VARIANTS, "vit_narrow", NARROW)
-        cfg = slice_config()
+        cfg, jcfg = slice_config(), slice_config(jconfig)
         args = slice_inputs()
         mw, tm, is_thing = class_maps()
         pad_s4 = args[1][0][::4, ::4]
 
-        jm = JModel(cfg.model)
+        jm = JModel(jcfg.model)
         params = jax.jit(jm.init)(jax.random.PRNGKey(0), *args)
 
         def run(p, *a):
@@ -85,14 +87,14 @@ def both():
                     isinstance(mdl, VLDeformableTransformer) and method == "__call__"))
             out["memory"] = state["intermediates"]["detr"]["transformer"]["__call__"][0]["memory"]
             res = j_inference(out, JMaps(jnp.asarray(mw), jnp.asarray(tm), jnp.asarray(is_thing)),
-                              cfg.test, cfg.model, pad_mask_s4=jnp.asarray(pad_s4))
+                              jcfg.test, jcfg.model, pad_mask_s4=jnp.asarray(pad_s4))
             return out, res
 
         jout, jres = jax.device_get(jax.jit(run)(params, *args))
 
         model = HIPIEModel(cfg.model).eval()
         params_np = jax.device_get(params)["params"]
-        keys = (set(export_hipie_checkpoint(params_np, cfg)), set(model.state_dict()))
+        keys = (set(export_hipie_checkpoint(params_np, jcfg)), set(model.state_dict()))
         load_from_jax(model, params_np, cfg)
         with torch.inference_mode():
             tout = model(*map(torch.from_numpy, args))
