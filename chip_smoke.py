@@ -11,12 +11,17 @@ prints no result line):
     shared-memory report.
  3. kernels: every kernel of the serving paths against its plain PyTorch
     version on the card at the paths' shapes, with max errors, tolerances and
-    times (CUDA events); each kernel's bound (operations over the peak rate of
-    their type, or bytes over the HBM rate, whichever is larger) and, where one
-    PyTorch call computes the same function, that call's time (SDPA with the
-    rel-pos bias prebuilt as a bf16 mask for K-A, einsum for K-C; the port
-    never calls them); and the ``flat4`` MSDA formulation (K-C) against the
-    fused one (K-B) at the R50 encoder shape.
+    times (CUDA events around a CUDA graph of calls, so that the small shapes
+    show the card's time and not the host's); each kernel's bound (operations
+    over the peak rate of their type, or bytes over the HBM rate, whichever is
+    larger) and, where one PyTorch call computes the same function, that
+    call's time (SDPA with the rel-pos bias prebuilt as a bf16 mask for K-A,
+    einsum for K-C; the port never calls them); and the ``flat4`` MSDA
+    formulation (K-C) against the fused one (K-B) at the R50 encoder shape.
+    K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform and local
+    locations), decoders and MaskDINO decoders in bf16, and the R50 ones and
+    the ViT-H encoder in f32; its record adds each case's numbers and the
+    encoder's corner-row traffic and rate.
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
     the same weights run on the CPU through the plain versions, once with
     fused MSDA and once with ``flat4``.
@@ -25,7 +30,9 @@ prints no result line):
     encoded once, then 3 distinct 1024x1024 uint8 images are answered through
     HIPIEModel.forward(..., lang_hidden=...) and hipie_inference. The kernels'
     launch counts over those requests must be exactly the path's, and K-A's
-    time per request is summed from CUDA events around its launches.
+    and K-B's times per request are summed from CUDA events around their calls.
+    K-B's launches are also counted by shape: its ms per request is each
+    shape's time from phase 3 times these counts.
  6. predict: HIPIEPredictor over HIPIEModel(r50_coco_panoptic()) at full width
     in bf16 with seeded random weights and the toy tokenizer over the COCO
     panoptic words, on distinct 480x640 uint8 images (resized to 800x1067,
@@ -33,7 +40,8 @@ prints no result line):
     grounding call, 1 PartSegmDemo panoptic + parts call (exact K-B counts),
     then the panoptic call through a second model with msda_method="flat4"
     and the same weights (exact K-C counts); then one f32 request through both
-    methods, compared before any top-k.
+    methods, compared before any top-k. Every shape at which phases 5 and 6
+    launched K-B must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -46,6 +54,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -60,6 +69,30 @@ R50_IMAGE = (480, 640)
 R50_BUCKET = (800, 1216)
 R50_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))
 R50_S = sum(h * w for h, w in R50_LEVELS)          # 20197 encoder queries
+# ViT-H path: the 1024x1024 image's levels at strides 8 to 64.
+VITH_LEVELS = ((128, 128), (64, 64), (32, 32), (16, 16))
+VITH_S = sum(h * w for h, w in VITH_LEVELS)        # 21760 encoder queries
+# K-B's cases: every (levels, Q, dtype) the serving and predictor paths give
+# it (8 heads of 32, 4 points a level; encoder Q = S and decoder 900 + 10
+# queries over the levels largest first, MaskDINO's 300 over them smallest
+# first; the predictor's f32 request), and both encoders with local
+# locations. main() fails if the paths launch K-B at a shape not here.
+MSDA_M, MSDA_D, MSDA_P = 8, 32, 4
+MSDA_CASES = (
+    # name, levels, Q, dtype, locations
+    ("encoder", VITH_LEVELS, VITH_S, torch.bfloat16, "uniform"),
+    ("encoder_local", VITH_LEVELS, VITH_S, torch.bfloat16, "local"),
+    ("decoder", VITH_LEVELS, 910, torch.bfloat16, "uniform"),
+    ("maskdino", VITH_LEVELS[::-1], 300, torch.bfloat16, "uniform"),
+    ("encoder_f32", VITH_LEVELS, VITH_S, torch.float32, "uniform"),
+    ("r50_encoder", R50_LEVELS, R50_S, torch.bfloat16, "uniform"),
+    ("r50_encoder_local", R50_LEVELS, R50_S, torch.bfloat16, "local"),
+    ("r50_decoder", R50_LEVELS, 910, torch.bfloat16, "uniform"),
+    ("r50_maskdino", R50_LEVELS[::-1], 300, torch.bfloat16, "uniform"),
+    ("r50_encoder_f32", R50_LEVELS, R50_S, torch.float32, "uniform"),
+    ("r50_decoder_f32", R50_LEVELS, 910, torch.float32, "uniform"),
+    ("r50_maskdino_f32", R50_LEVELS[::-1], 300, torch.float32, "uniform"),
+)
 # Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
 PEAK_BF16_TENSOR = 989e12        # FLOP/s, dense bf16 on the tensor cores
 PEAK_F32 = 67e12                 # FLOP/s, f32 outside the tensor cores
@@ -70,15 +103,28 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
+def cuda_time_ms(fn, iters: int) -> float:
+    """Mean ms of ``fn`` by CUDA events around one replay of a CUDA graph that
+    holds ``iters`` calls: the card's time alone, without the host's cost of
+    launching (which exceeds K-B's at its small shapes). Repeated calls on
+    the same inputs find them in L2 where they fit, as the path's do after
+    the op that writes them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                 # warm-up, off the capture
         fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -121,6 +167,77 @@ def check_attention(what, got, want):
     return err, tol, rel
 
 
+def check_msda(what, got, want):
+    """(max abs err, its limit, relative norm err) of K-B against the plain
+    version; raises past a limit. Both sample the same values in f32 and
+    differ in summation order: f32 to 1e-5. bf16 then rounds once on each
+    side: at most one bf16 ulp of the largest output, 2^-7 max|plain|, and a
+    relative norm error of 1e-3 (a dropped sample moves it by several %)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().max().item()
+    rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+    if got.dtype == torch.float32:
+        tol, rel_tol = 1e-5, 1e-5
+    else:
+        tol, rel_tol = 2 ** -7 * w.abs().max().item(), 1e-3
+    if not (got.dtype == want.dtype and got.shape == want.shape and err <= tol
+            and rel <= rel_tol):
+        raise AssertionError(f"{what} disagrees with the plain version: {got.dtype} "
+                             f"{tuple(got.shape)} against {want.dtype} {tuple(want.shape)}, "
+                             f"max abs err {err} (tol {tol}), relative norm err {rel} "
+                             f"(tol {rel_tol})")
+    return err, tol, rel
+
+
+def local_locations(rng: np.random.Generator, shapes, m: int, p: int) -> np.ndarray:
+    """(1, S, m, L, p, 2) f32: query i (position i of the level-ordered map)
+    samples each level l at its own pixel centre plus N(0, 2) pixels of level
+    l per point and axis: the locality MSDeformAttn's radial grid gives."""
+    centres = []
+    for h, w in shapes:
+        ys, xs = np.meshgrid((np.arange(h) + 0.5) / h, (np.arange(w) + 0.5) / w, indexing="ij")
+        centres.append(np.stack([xs.ravel(), ys.ravel()], -1))
+    c = np.concatenate(centres).astype(np.float32)                        # (S, 2) as (x, y)
+    wh = np.array([[w, h] for h, w in shapes], np.float32)               # (L, 2)
+    off = rng.standard_normal((1, len(c), m, len(shapes), p, 2), dtype=np.float32) * 2.0
+    return c[None, :, None, None, None, :] + off / wh[None, None, None, :, None, :]
+
+
+def msda_inputs(levels, q: int, dtype, locations: str, dev, seed: int):
+    """K-B's inputs for one of MSDA_CASES, made from ``seed`` with numpy: value
+    (1, S, 8, 32) N(0, 1), locations (1, Q, 8, L, 4, 2) uniform over
+    [-0.05, 1.05] or local (Q = S), weights (1, Q, 8, L, 4) summing to 1 over
+    (L, P)."""
+    rng = np.random.default_rng(seed)
+    s, n_levels = sum(h * w for h, w in levels), len(levels)
+    value = rng.standard_normal((1, s, MSDA_M, MSDA_D), dtype=np.float32)
+    if locations == "local":
+        assert q == s, "local locations need Q = S"
+        loc = local_locations(rng, levels, MSDA_M, MSDA_P)
+    else:
+        loc = rng.uniform(-0.05, 1.05, (1, q, MSDA_M, n_levels, MSDA_P, 2)).astype(np.float32)
+    w = rng.uniform(0, 1, (1, q, MSDA_M, n_levels, MSDA_P)).astype(np.float32)
+    w /= w.sum(axis=(-1, -2), keepdims=True)
+    return (torch.from_numpy(value).to(dev, dtype), torch.from_numpy(loc).to(dev),
+            torch.from_numpy(w).to(dev))
+
+
+def msda_shape(value, spatial_shapes, sampling_locations, attention_weights, method="fused"):
+    """K-B's shape of an MSDA call, (levels, B, Q, M, D, dtype); None for a
+    call that does not reach K-B."""
+    if method != "fused":
+        return None
+    levels = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    b, q, m = sampling_locations.shape[:3]
+    return levels, b, q, m, value.shape[-1], str(value.dtype)[6:]
+
+
+def corner_bytes(value, loc) -> int:
+    """Bytes of the corner rows K-B gathers: 4 rows of D values per sample."""
+    b, q, m, n_levels, p, _ = loc.shape
+    return b * q * m * n_levels * p * 4 * value.shape[-1] * value.element_size()
+
+
 def phase_device():
     card = card_name()
     log(card)
@@ -145,7 +262,6 @@ def phase_kernels(dev, card):
     bound and the time of the one PyTorch call that computes the same function
     (timed here only, never called by the port)."""
     from hipie_torch import kernels
-    from hipie_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
     from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
 
     rng = np.random.RandomState(SEED)
@@ -192,51 +308,88 @@ def phase_kernels(dev, card):
                     "library_bias_build_ms": bias_ms})
     del q, k, v, rh, rw, got, want, bias
 
-    # K-B: encoder (Q = S), decoder (Q = 910) and MaskDINO decoder (Q = 300) shapes.
-    shapes = ((128, 128), (64, 64), (32, 32), (16, 16))
-    s = sum(h * w for h, w in shapes)
-    m, d, n_levels, p = 8, 32, 4, 4
-    msda = None
-    max_err = 0.0
-    for qn, dtype in ((s, torch.bfloat16), (s, torch.float32), (910, torch.bfloat16),
-                      (300, torch.bfloat16)):
-        value = torch.from_numpy(rng.randn(1, s, m, d).astype(np.float32)).to(dev, dtype)
-        loc = torch.from_numpy(rng.uniform(-0.05, 1.05, (1, qn, m, n_levels, p, 2))
-                               .astype(np.float32)).to(dev)
-        w = rng.uniform(0, 1, (1, qn, m, n_levels, p)).astype(np.float32)
-        w = torch.from_numpy(w / w.sum(axis=(-1, -2), keepdims=True)).to(dev)
-        got = ms_deform_attn(value, shapes, loc, w)
-        want = ms_deform_attn_plain(value, shapes, loc, w)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        rel = err / want.float().abs().max().item()
-        # same f32 sampling; f32: summation order only; bf16: one output rounding
-        tol = 1e-5 if dtype == torch.float32 else 1e-2
-        ms = cuda_time_ms(lambda: ms_deform_attn(value, shapes, loc, w), 10)
-        plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, shapes, loc, w), 5)
-        log(f"[kernels] ms_deform_attn Q={qn} S={s} M={m} D={d} L={n_levels} P={p} "
-            f"{str(dtype)[6:]}: max abs err {err:.3e} (rel {rel:.3e}, tol {tol}), "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if not err <= tol:
-            raise AssertionError(f"ms_deform_attn disagrees with its plain version: {err} > {tol}")
-        max_err = max(max_err, err)
-        if msda is None:          # the record carries the encoder bf16 shape's times
-            # per sample: 4 corners x D channels, a multiply-add each, in f32
-            b = bound(8.0 * qn * m * n_levels * p * d, nbytes(value, loc, w, got), PEAK_F32,
-                      "f32 cores")
-            log(f"[kernels] ms_deform_attn bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
-                f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / ms:.1f}% of "
-                f"the bound; no single PyTorch call computes MSDA (library_ms null)")
-            msda = {"name": "ms_deform_attn", "route": "cuda",
-                    "source": "hipie_torch/csrc/ms_deform_attn.cu",
-                    "replaces": "hipie_tpu/ops/ms_deform_attn.py:719",
-                    "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
-    msda["max_abs_err"] = max_err
-    records.append(msda)
+    msda_record, msda_cases = _check_msda(dev, card)
+    records.append(msda_record)
     records.append(_check_msda_reduce(dev))
     _check_flat4(dev, rng)
     kernels.reset_launch_counts()      # launches made for comparison do not count
-    return records
+    return records, msda_cases
+
+
+def _check_msda(dev, card):
+    """K-B at every case of MSDA_CASES: held to check_msda's limits against the
+    plain version, both timed. Returns the record (the ViT-H encoder's time,
+    bound and plain time, and every case's numbers under "shapes") and the
+    cases; main() adds the ms per request once the serve phase has counted
+    K-B's launches at each shape."""
+    from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAIRS,
+                                                TABLE_CHUNK, kernel_constants, kernel_plan,
+                                                ms_deform_attn, ms_deform_attn_plain)
+
+    constants = kernel_constants()
+    if constants != (BLOCK_THREADS, TABLE_CHUNK, GATHER_BATCH, MAX_PAIRS):
+        raise AssertionError(f"K-B's built constants {constants} differ from the wrapper's")
+    cases = []
+    for i, (name, levels, q, dtype, locations) in enumerate(MSDA_CASES):
+        value, loc, w = msda_inputs(levels, q, dtype, locations, dev, SEED + i)
+        got = ms_deform_attn(value, levels, loc, w)
+        want = ms_deform_attn_plain(value, levels, loc, w)
+        torch.cuda.synchronize()
+        err, tol, rel = check_msda(f"ms_deform_attn ({name})", got, want)
+        ms = cuda_time_ms(lambda: ms_deform_attn(value, levels, loc, w), 20)
+        plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, levels, loc, w), 5)
+        traffic = corner_bytes(value, loc)
+        c = {"case": name, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
+             "locations": locations, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "tol": tol, "rel_err": rel, "corner_bytes": traffic,
+             "corner_rate_tbs": traffic / ms / 1e9,
+             "plan": kernel_plan(MSDA_D, value.element_size(), q * MSDA_M)._asdict(),
+             "shape": msda_shape(value, levels, loc, w)}
+        cases.append(c)
+        log(f"[kernels] ms_deform_attn {name} Q={q} S={c['s']} M={MSDA_M} D={MSDA_D} "
+            f"L={len(levels)} P={MSDA_P} {c['dtype']}, {locations} locations: max abs err "
+            f"{err:.3e} (tol {tol:.3e}), relative norm err {rel:.3e}, kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, corner rows {traffic / 1e6:.1f} MB at "
+            f"{c['corner_rate_tbs']:.2f} TB/s; plan {c['plan']}")
+        if name == "encoder":
+            # per sample: 4 corners x D channels, a multiply-add each, in f32
+            b = bound(8.0 * loc[..., 0].numel() * MSDA_D, nbytes(value, loc, w, got), PEAK_F32,
+                      "f32 cores")
+            enc = c
+        del value, loc, w, got, want
+    log(f"[kernels] ms_deform_attn bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
+        f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / enc['ms']:.1f}% of "
+        f"the bound at the ViT-H encoder shape; no single PyTorch call computes MSDA "
+        f"(library_ms null); card {card}")
+    record = {"name": "ms_deform_attn", "route": "cuda",
+              "source": "hipie_torch/csrc/ms_deform_attn.cu",
+              "replaces": "hipie_tpu/ops/ms_deform_attn.py:719",
+              "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": enc["ms"],
+              "plain_ms": enc["plain_ms"], **b, "library_ms": None,
+              "library_note": "no single PyTorch call computes MSDA: the nearest is one "
+                              "grid_sample per level plus a weighted sum, the plain version",
+              "shapes": {c["case"]: {k: c[k] for k in ("q", "s", "dtype", "locations", "ms",
+                                                       "plain_ms", "max_abs_err", "tol",
+                                                       "rel_err", "plan")}
+                         for c in cases},
+              "corner_bytes": enc["corner_bytes"], "corner_rate_tbs": enc["corner_rate_tbs"]}
+    return record, cases
+
+
+def msda_ms_per_request(cases, counts, local: bool = False) -> float:
+    """K-B ms per request: each shape's time (uniform locations, or local ones
+    where a case has them) times its launches per request, as counted."""
+    times = {c["shape"]: c["ms"] for c in cases if c["locations"] == "uniform"}
+    if local:
+        times.update({c["shape"]: c["ms"] for c in cases if c["locations"] == "local"})
+    return sum(n * times[shape] for shape, n in counts.items())
+
+
+def check_msda_coverage(cases, ran) -> None:
+    """Fails if the paths launched K-B at a shape no case checked."""
+    missing = set(ran) - {c["shape"] for c in cases}
+    if missing:
+        raise AssertionError(f"K-B ran at shapes chip_smoke.py does not check: {sorted(missing)}")
 
 
 def _check_msda_reduce(dev):
@@ -409,28 +562,45 @@ def check_result(res, cfg):
 
 
 @contextlib.contextmanager
-def timing_vit_attention():
-    """Within the block the ViT calls K-A's wrapper with a pair of CUDA events
-    around each call; yields the list the (start, end) pairs go to."""
-    import hipie_torch.models.backbone.vit as vit_module
-    from hipie_torch.ops.vit_attention import vit_global_attention
-
+def timing_calls(module, name, record=None):
+    """Within the block ``module.name`` (a kernel wrapper as the model imports
+    it) runs with a pair of CUDA events around each call, and ``record``, if
+    given, is called with each call's arguments; yields the list the (start,
+    end) pairs go to."""
     events = []
+    inner = getattr(module, name)
 
-    def wrapped(*args):
+    def wrapped(*args, **kwargs):
+        if record is not None:
+            record(*args, **kwargs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = vit_global_attention(*args)
+        out = inner(*args, **kwargs)
         end.record()
         events.append((start, end))
         return out
 
-    plain = vit_module.vit_global_attention
-    vit_module.vit_global_attention = wrapped
+    setattr(module, name, wrapped)
     try:
         yield events
     finally:
-        vit_module.vit_global_attention = plain
+        setattr(module, name, inner)
+
+
+def timing_vit_attention():
+    """timing_calls around K-A's wrapper as the ViT calls it."""
+    import hipie_torch.models.backbone.vit as vit_module
+
+    return timing_calls(vit_module, "vit_global_attention")
+
+
+def timing_msda(shapes=None):
+    """timing_calls around MSDA (K-B on the fused path) as MSDeformAttn calls
+    it; each call's msda_shape is appended to ``shapes`` if given."""
+    import hipie_torch.models.msda_module as msda_module
+
+    record = None if shapes is None else (lambda *a, **k: shapes.append(msda_shape(*a, **k)))
+    return timing_calls(msda_module, "ms_deform_attn", record)
 
 
 def vit_huge_server(dev, seed: int = SEED):
@@ -486,18 +656,21 @@ def phase_serve(dev, card):
     n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
               + mc.maskdino.dec_layers)
     torch.cuda.reset_peak_memory_stats()
+    kb_shapes = []
     with torch.inference_mode():
         kernels.reset_launch_counts()
-        times, ka_ms = [], []
+        times, ka_ms, kb_ms = [], [], []
         for img in serve_images(N_REQUESTS):
-            with timing_vit_attention() as events:
+            with timing_vit_attention() as events, timing_msda(kb_shapes) as kb_events:
                 t0 = time.perf_counter()
                 res = request(img)
                 torch.cuda.synchronize()
                 times.append(1000.0 * (time.perf_counter() - t0))
             ka_ms.append(sum(a.elapsed_time(b) for a, b in events))
-            if len(events) != n_global:
-                raise AssertionError(f"{len(events)} K-A calls in a request, expected {n_global}")
+            kb_ms.append(sum(a.elapsed_time(b) for a, b in kb_events))
+            if len(events) != n_global or len(kb_events) != n_msda:
+                raise AssertionError(f"{len(events)} K-A and {len(kb_events)} K-B calls in a "
+                                     f"request, expected {n_global} and {n_msda}")
             check_result(res, cfg)
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -506,6 +679,8 @@ def phase_serve(dev, card):
     log(f"[serve] K-A ms per request by CUDA events ({n_global} launches each): "
         f"{[round(t, 4) for t in ka_ms]}; share of the request's wall time "
         f"{[round(a / b, 4) for a, b in zip(ka_ms, times)]}")
+    log(f"[serve] K-B ms per request by CUDA events around its {n_msda} calls (host gaps "
+        f"between an event and its launch included): {[round(t, 4) for t in kb_ms]}")
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
     want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
@@ -514,7 +689,10 @@ def phase_serve(dev, card):
         f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
-    return launches, {name: count // N_REQUESTS for name, count in launches.items()}
+    kb_per_request = {shape: n / N_REQUESTS for shape, n in Counter(kb_shapes).items()}
+    log(f"[serve] K-B launches per request by shape (levels, B, Q, M, D, dtype): "
+        f"{kb_per_request}")
+    return launches, {name: count // N_REQUESTS for name, count in launches.items()}, kb_per_request
 
 
 def _check_prediction(res, task):
@@ -676,15 +854,27 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    records = phase_kernels(dev, card)
+    records, msda_cases = phase_kernels(dev, card)
     phase_reference(dev)
-    launches, per_request = phase_serve(dev, card)
-    launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
+    launches, per_request, kb_per_request = phase_serve(dev, card)
+    predict_shapes = []
+    with timing_msda(predict_shapes):
+        launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
+    check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes if s])
     for r in records:
         r["launches"] = launches[r["name"]]
         r["launches_per_request"] = per_request[r["name"]]
     next(r for r in records if r["name"] == "msda_reduce")["launches_per_flat4_call"] = (
         launches["msda_reduce"])
+    kb = next(r for r in records if r["name"] == "ms_deform_attn")
+    kb["launches_per_request_by_case"] = {
+        c["case"]: kb_per_request[c["shape"]] for c in msda_cases
+        if c["locations"] == "uniform" and c["shape"] in kb_per_request}
+    kb["ms_per_request"] = msda_ms_per_request(msda_cases, kb_per_request)
+    kb["ms_per_request_local"] = msda_ms_per_request(msda_cases, kb_per_request, local=True)
+    log(f"[serve] K-B ms per ViT-H request from the shape times and the counted launches "
+        f"{kb['launches_per_request_by_case']}: {kb['ms_per_request']:.4f} "
+        f"({kb['ms_per_request_local']:.4f} with local encoder locations); card {card}")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

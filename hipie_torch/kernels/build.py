@@ -39,8 +39,9 @@ _int = ctypes.c_int
 _SIGNATURES = {
     "hipie_vit_attention": [_vp, _vp, _vp, _vp, _vp, _vp,
                             _int, _int, _int, _int, _int, ctypes.c_float, _vp],
-    "hipie_ms_deform_attn": [_vp, _vp, _vp, _vp, _vp, _vp,
-                             _int, _int, _int, _int, _int, _int, _int, _int, _vp],
+    "hipie_ms_deform_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
+                             _int, _int, _int, _int, _int, _int, _vp],
+    "hipie_ms_deform_attn_constants": [_vp],
     "hipie_msda_reduce": [_vp, _vp, _vp, ctypes.c_longlong, _int, _int, _int, _vp],
 }
 

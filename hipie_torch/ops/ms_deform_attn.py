@@ -12,7 +12,7 @@ fallback between the two. ``method="flat4"`` instead runs the JAX package's
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -116,6 +116,62 @@ def ms_deform_attn_flat4(value, spatial_shapes: Shapes, sampling_locations,
 
 MSDA_METHODS = ("fused", "flat4")
 
+# K-B's constants: threads a block, samples a table fill, samples a gather
+# batch, most pairs a block (kThreads, kChunk, kBatch, kMaxPairs in
+# csrc/ms_deform_attn.cu; kernel_constants() reads the built kernel's, and
+# chip_smoke.py and the card tests hold the two equal).
+BLOCK_THREADS, TABLE_CHUNK, GATHER_BATCH, MAX_PAIRS = 256, 16, 4, 64
+# Below this many threads in a G = 1 grid (pairs x threads across a row), 96
+# blocks for the H100's 132 SMs, each pair's samples split over 4 groups: split,
+# f32 at Q = 300 (75 blocks) runs faster and bf16 at Q = 910 (114) slower.
+SPLIT_BELOW = 96 * 256
+
+
+def kernel_constants() -> Tuple[int, int, int, int]:
+    """The built K-B's (kThreads, kChunk, kBatch, kMaxPairs). Needs nvcc."""
+    from hipie_torch.kernels import build
+
+    out = torch.zeros(4, dtype=torch.int32)
+    build.check(build.load().hipie_ms_deform_attn_constants(out.data_ptr()),
+                "ms_deform_attn constants")
+    return tuple(out.tolist())
+
+
+class KernelPlan(NamedTuple):
+    """How K-B maps a launch onto threads (checked again by its C entry)."""
+
+    vec_bytes: int       # bytes a thread loads at once from a head row: 16, 8, 4 or 2
+    chunks: int          # such vectors in a head row: D * itemsize / vec_bytes
+    chunk_threads: int   # threads across a row's vectors, a power of two <= 32
+    groups: int          # thread groups a pair's samples split over (1 or 4)
+
+    @property
+    def pairs_per_block(self) -> int:
+        return BLOCK_THREADS // (self.chunk_threads * self.groups)
+
+    @property
+    def chunk_iters(self) -> int:
+        return -(-self.chunks // self.chunk_threads)
+
+
+def kernel_plan(d: int, itemsize: int, pairs: int, align: int = 16,
+                groups: Optional[int] = None) -> KernelPlan:
+    """K-B's plan for head dim ``d`` of ``itemsize``-byte values and ``pairs``
+    (b, q, m) pairs, with value rows aligned to ``align`` bytes. The widest
+    vector that divides the row and its alignment; as many threads across a
+    row as it has vectors, up to 32; ``groups`` 4 where the grid is small or a
+    row has under 4 vectors (a pair then still has 4 threads or more), else 1."""
+    row = d * itemsize
+    vec = next(v for v in (16, 8, 4, 2) if v >= itemsize and row % v == 0 and align % v == 0)
+    chunks = row // vec
+    ct = min(32, 1 << (chunks - 1).bit_length())
+    if groups is None:
+        groups = 4 if ct < 4 or (ct <= 8 and pairs * ct < SPLIT_BELOW) else 1
+    if groups not in (1, 4) or not BLOCK_THREADS // MAX_PAIRS <= ct * groups <= 32:
+        raise ValueError(f"ms_deform_attn: {groups} sample groups of {ct} threads is not a "
+                         "plan: a pair takes 4 to 32 threads")
+    return KernelPlan(vec, chunks, ct, groups)
+
 
 def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations, attention_weights, method: str = "fused") -> torch.Tensor:
@@ -153,15 +209,25 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"ms_deform_attn: {name} must be contiguous {shape}, "
                              f"got {tuple(t.shape)}")
+    plan = kernel_plan(d, value.element_size(), b * q * m, value.data_ptr() & -value.data_ptr())
+    return _launch(value, spatial_shapes, sampling_locations, attention_weights, plan)
+
+
+def _launch(value, spatial_shapes: Shapes, sampling_locations, attention_weights,
+            plan: KernelPlan) -> torch.Tensor:
+    """K-B on checked CUDA inputs with the given plan."""
     from hipie_torch.kernels import build
 
+    b, s, m, d = value.shape
+    q, p = sampling_locations.shape[1], sampling_locations.shape[4]
     lib = build.load()
     shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
     out = torch.empty((b, q, m * d), dtype=value.dtype, device=value.device)
     err = lib.hipie_ms_deform_attn(
         value.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(), out.data_ptr(),
-        b, s, m, d, q, n_levels, p, int(value.dtype == torch.bfloat16),
+        b, s, m, d, q, len(spatial_shapes), p, int(value.dtype == torch.bfloat16),
+        plan.vec_bytes, plan.chunk_threads, plan.groups,
         torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, "ms_deform_attn")
     kernels.LAUNCHES["ms_deform_attn"] += 1

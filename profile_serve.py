@@ -15,9 +15,12 @@ HIPIEModel(vit_huge_coco_panoptic()) in bf16 with seeded random weights, the
    work, with nothing added on the host. The profiler slows the host, so the
    profiled requests' own idle share is printed beside it but overstates the
    idle;
- * ``--requests`` more with CUDA events on stage hooks and around K-A's
-   launches: each stage's time and K-A's time per request. The hooks slow the
-   host, so these requests' wall times are not the ones above.
+ * ``--requests`` more with CUDA events on stage hooks and around K-A's and
+   K-B's calls: each stage's time and K-A's and K-B's times per request. The
+   hooks slow the host, so these requests' wall times are not the ones above.
+
+K-A's and K-B's device times per request (the profiled requests' kernels of
+their names) are printed beside the top kernels.
 
 Prints a readable report, then one JSON line with the numbers. Needs a card.
 """
@@ -31,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from chip_smoke import card_name, serve_images, timing_vit_attention, vit_huge_server
+from chip_smoke import card_name, serve_images, timing_msda, timing_vit_attention, vit_huge_server
 
 WARMUP = 2
 PROFILED = 3
@@ -99,7 +102,7 @@ def main(argv=None) -> int:
         kernels.reset_launch_counts()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             prof_ms = [_timed(request, next(images)) for _ in range(PROFILED)]
-        ka_launches = kernels.LAUNCHES["vit_attention"] / PROFILED
+        launches = {k: v / PROFILED for k, v in kernels.LAUNCHES.items()}
 
         detr = model.detr.detr
         stages = {"backbone": [detr.backbone[0].backbone], "input_proj": list(detr.input_proj),
@@ -111,11 +114,13 @@ def main(argv=None) -> int:
         timer = _StageTimer(stages)
         rows = []
         for _ in range(args.requests):
-            with timing_vit_attention() as ka_events:
+            with timing_vit_attention() as ka_events, timing_msda() as kb_events:
                 wall = _timed(request, next(images))
             rows.append({"hooked_wall_ms": wall, **{f"{k}_ms": v for k, v in timer.take().items()},
                          "ka_ms": sum(a.elapsed_time(b) for a, b in ka_events),
-                         "ka_launches": len(ka_events)})
+                         "ka_launches": len(ka_events),
+                         "kb_ms": sum(a.elapsed_time(b) for a, b in kb_events),
+                         "kb_launches": len(kb_events)})
 
     # device-side events only (kernels, copies): an operator's own row would
     # count its kernels' time a second time
@@ -129,13 +134,18 @@ def main(argv=None) -> int:
     per_kernel = sorted(((name, ms / PROFILED, count // PROFILED)
                          for name, (ms, count) in by_name.items()), key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in per_kernel)
+    # device ms and launches per request of each hand-written kernel, by name
+    own = {name: [sum(r[i] for r in per_kernel if f"{name}_kernel" in r[0]) for i in (1, 2)]
+           for name in ("vit_attention", "ms_deform_attn")}
     plain_mean, prof_mean = float(np.mean(plain_ms)), float(np.mean(prof_ms))
     idle, idle_profiled = 1 - busy / plain_mean, 1 - busy / prof_mean
     mean = {k: float(np.mean([r[k] for r in rows])) for k in rows[0]}
     print(f"card {card}; {WARMUP} warm-up requests")
     print(f"plain requests: ms {[round(t, 3) for t in plain_ms]}, mean {plain_mean:.3f}")
     print(f"profiled requests: ms {[round(t, 3) for t in prof_ms]}, mean {prof_mean:.3f}; "
-          f"device busy {busy:.3f} ms per request; K-A launches {ka_launches:g} per request")
+          f"device busy {busy:.3f} ms per request; launches per request {launches}")
+    for name, (ms, count) in own.items():
+        print(f"{name}: {ms:.4f} ms of device time per request in {count} launches")
     print(f"idle share {idle:.4f} of the plain requests' mean wall time "
           f"({idle_profiled:.4f} of the profiled requests', which the profiler slows)")
     for name, ms, count in per_kernel[:12]:
@@ -146,7 +156,8 @@ def main(argv=None) -> int:
     print("  mean: " + ", ".join(f"{k} {v:.3f}" for k, v in mean.items()))
     print(json.dumps({"card": card, "plain_ms": plain_ms, "profiled_ms": prof_ms,
                       "device_busy_ms": busy, "idle_share": idle,
-                      "idle_share_profiled": idle_profiled, "hooked": rows,
+                      "idle_share_profiled": idle_profiled, "launches_per_request": launches,
+                      "kernel_device_ms": {n: ms for n, (ms, _) in own.items()}, "hooked": rows,
                       "hooked_mean": mean,
                       "top_kernels": [{"name": n[:200], "ms": ms, "count": c}
                                       for n, ms, c in per_kernel[:12]]}))

@@ -14,9 +14,12 @@ Inputs are made with numpy from a seed. Tolerances:
     with the output: |diff| <= 2^-6 max|plain| (2-4 bf16 ulps of the largest
     output), and a relative norm error <= 1e-2, which a scale error or a
     dropped 128-key tile would exceed.
-  * K-B: both read the same values and sample in f32; they differ only in
-    summation order: 1e-5 in f32, and one bf16 output rounding (1e-2 at
-    magnitude ~1) in bf16.
+  * K-B (``chip_smoke.check_msda``, the limits chip_smoke.py holds it to):
+    both read the same values and sample in f32; they differ only in
+    summation order: 1e-5 in f32. In bf16 each side then rounds its output
+    once, so they differ by at most one bf16 ulp of the largest output,
+    |diff| <= 2^-7 max|plain|, and by a relative norm error <= 1e-3, which a
+    sample dropped or counted twice (several %) would exceed.
   * K-C: both read the same values and sum in f32: summation order only, 1e-5
     (relative and absolute) in both dtypes.
   * ``flat4`` against K-B: in f32 summation order only (1e-5). In bf16 flat4
@@ -29,8 +32,11 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import check_msda, local_locations
 from hipie_torch import kernels
-from hipie_torch.ops.ms_deform_attn import ms_deform_attn, ms_deform_attn_plain
+from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAIRS, TABLE_CHUNK,
+                                            _launch, kernel_constants, kernel_plan,
+                                            ms_deform_attn, ms_deform_attn_plain)
 from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
 from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
 
@@ -84,38 +90,97 @@ def test_vit_attention_kernel_rejects_f32(dev):
         vit_global_attention(q, k, v, rh, rw, 0.25)
 
 
-def _msda_inputs(b, q, m, d, shapes, p, seed, dev, dtype):
+def _msda_inputs(b, q, m, d, shapes, p, seed, dev, dtype, locations="uniform"):
     r = np.random.RandomState(seed)
     s = sum(h * w for h, w in shapes)
     L = len(shapes)
     value = torch.from_numpy(r.randn(b, s, m, d).astype(np.float32)).to(dev, dtype)
-    loc = torch.from_numpy(r.uniform(-0.2, 1.2, (b, q, m, L, p, 2)).astype(np.float32)).to(dev)
+    if locations == "local":              # each query near its own pixel (Q = S)
+        loc = np.concatenate([local_locations(np.random.default_rng(seed + i), shapes, m, p)
+                              for i in range(b)])
+    elif locations == "edges":            # on pixel centres and edges, and outside [0, 1]
+        hw = np.array([[w, h] for h, w in shapes], np.float32)[None, None, None, :, None, :]
+        k = r.randint(-3, 2 * max(max(sh) for sh in shapes) + 3, (b, q, m, L, p, 2))
+        loc = (k / 2.0 / hw).astype(np.float32)
+    else:
+        loc = r.uniform(-0.2, 1.2, (b, q, m, L, p, 2)).astype(np.float32)
     w = r.uniform(0, 1, (b, q, m, L, p)).astype(np.float32)
     w = torch.from_numpy(w / w.sum(axis=(-1, -2), keepdims=True)).to(dev)
-    return value, loc, w
+    return value, torch.from_numpy(loc).to(dev), w
+
+
+def test_ms_deform_attn_constants_match_the_wrapper(dev):
+    assert kernel_constants() == (BLOCK_THREADS, TABLE_CHUNK, GATHER_BATCH, MAX_PAIRS)
 
 
 ENC_SHAPES = ((128, 128), (64, 64), (32, 32), (16, 16))
+R50_SHAPES = ((100, 152), (50, 76), (25, 38), (13, 19))
+ENC_S, R50_S = 21760, 20197
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,q,m,d,shapes,p", [
-    (2, 7, 2, 8, ((6, 4), (3, 2)), 3),
-    (1, 37, 4, 16, ((10, 12), (5, 6), (3, 3)), 4),
-    (1, 300, 8, 32, ENC_SHAPES, 4),
-    (1, 910, 8, 32, ENC_SHAPES, 4),
-    (1, 21760, 8, 32, ENC_SHAPES, 4),
+@pytest.mark.parametrize("b,q,m,d,shapes,p,locations", [
+    (2, 7, 2, 8, ((6, 4), (3, 2)), 3, "uniform"),       # L*P = 6: the generic instance
+    (1, 37, 4, 16, ((10, 12), (5, 6), (3, 3)), 4, "uniform"),
+    (1, 45, 2, 32, ((13, 19), (7, 10)), 8, "edges"),     # L*P = 16 on edges and outside
+    (1, 33, 3, 32, ((9, 7),) * 4, 8, "uniform"),         # L*P = 32: two table fills
+    (1, 300, 8, 32, ENC_SHAPES, 4, "uniform"),
+    (1, 910, 8, 32, ENC_SHAPES, 4, "uniform"),
+    (1, ENC_S, 8, 32, ENC_SHAPES, 4, "uniform"),
+    (1, ENC_S, 8, 32, ENC_SHAPES, 4, "local"),
+    (2, 910, 8, 32, ENC_SHAPES, 4, "uniform"),          # batch 2
+    (1, R50_S, 8, 32, R50_SHAPES, 4, "uniform"),         # the R50 encoder
+    (1, R50_S, 8, 32, R50_SHAPES, 4, "local"),
+    (1, 910, 8, 32, R50_SHAPES, 4, "uniform"),           # the R50 decoder
+    (1, 300, 8, 32, R50_SHAPES[::-1], 4, "uniform"),     # the R50 MaskDINO decoder
+    (2, R50_S, 8, 4, R50_SHAPES, 4, "uniform"),          # D = 4 (MaskDINO's tiny width)
+    (1, 50, 2, 3, ((5, 7),), 2, "uniform"),              # bf16: 2-byte vectors
+    (1, 50, 2, 5, ((5, 7),), 2, "uniform"),              # f32: 4-byte vectors
+    (1, 50, 2, 6, ((5, 7), (2, 3)), 2, "edges"),         # 4- or 8-byte vectors
+    (1, 40, 2, 100, ((6, 5),), 4, "uniform"),            # 25 8-byte vectors a row in bf16
+    (1, 40, 2, 127, ((6, 5), (3, 3)), 2, "uniform"),     # 127 vectors: 4 passes of 32 threads
+    (1, 40, 2, 128, ((6, 5), (3, 3)), 4, "uniform"),     # 32 threads across a row in f32
 ])
-def test_ms_deform_attn_kernel_matches_plain(dev, dtype, b, q, m, d, shapes, p):
-    value, loc, w = _msda_inputs(b, q, m, d, shapes, p, q, dev, dtype)
+def test_ms_deform_attn_kernel_matches_plain(dev, dtype, b, q, m, d, shapes, p, locations):
+    value, loc, w = _msda_inputs(b, q, m, d, shapes, p, q + d, dev, dtype, locations)
     before = kernels.LAUNCHES["ms_deform_attn"]
     got = ms_deform_attn(value, shapes, loc, w)
     assert kernels.LAUNCHES["ms_deform_attn"] == before + 1
     want = ms_deform_attn_plain(value, shapes, loc, w)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (b, q, m * d)
-    atol = 1e-5 if dtype == torch.float32 else 1e-2
-    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
+    check_msda("ms_deform_attn", got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [1, 4])
+@pytest.mark.parametrize("b,q,m,d,shapes,p", [
+    (1, 910, 8, 32, ENC_SHAPES, 4),
+    (2, 61, 8, 32, R50_SHAPES, 4),                      # a ragged last tile
+    (1, 29, 4, 24, ((13, 19), (7, 10), (4, 5)), 3),      # L*P = 9; 3 or 6 vectors a row
+])
+def test_ms_deform_attn_kernel_either_split(dev, dtype, groups, b, q, m, d, shapes, p):
+    """Both sample splits (1 group, or 4 groups met by warp shuffles) on one shape."""
+    value, loc, w = _msda_inputs(b, q, m, d, shapes, p, 5, dev, dtype)
+    plan = kernel_plan(d, value.element_size(), b * q * m, groups=groups)
+    got = _launch(value, shapes, loc, w, plan)
+    torch.cuda.synchronize()
+    check_msda("ms_deform_attn", got, ms_deform_attn_plain(value, shapes, loc, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_kernel_unaligned_rows(dev, dtype):
+    """A value view one element into its storage takes the narrowest vectors."""
+    shapes = ((9, 11), (5, 6))
+    value, loc, w = _msda_inputs(1, 70, 4, 32, shapes, 4, 3, dev, dtype)
+    flat = torch.empty(value.numel() + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(value.shape)
+    shifted.copy_(value)
+    assert kernel_plan(32, value.element_size(), 280, shifted.data_ptr() & -shifted.data_ptr()
+                       ).vec_bytes == value.element_size()
+    got = ms_deform_attn(shifted, shapes, loc, w)
+    torch.cuda.synchronize()
+    check_msda("ms_deform_attn", got, ms_deform_attn_plain(value, shapes, loc, w))
 
 
 def test_ms_deform_attn_kernel_rejects_f16(dev):

@@ -105,8 +105,8 @@ def test_predictor_runs_without_jax():
 
 
 def _port_sources():
-    return sorted((REPO / "hipie_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
-                                                            REPO / "profile_serve.py"]
+    return sorted((REPO / "hipie_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "profile_serve.py", REPO / "msda_bench.py"]
 
 
 def _forbidden_imports(path):
@@ -124,8 +124,9 @@ def _forbidden_imports(path):
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Every import statement of hipie_torch/, chip_smoke.py and profile_serve.py, at any depth
-    (inside functions too), stays out of hipie_tpu, jax and flax."""
+    """Every import statement of hipie_torch/, chip_smoke.py, profile_serve.py and
+    msda_bench.py, at any depth (inside functions too), stays out of hipie_tpu, jax and
+    flax."""
     sources = _port_sources()
     assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}
