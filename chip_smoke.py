@@ -9,19 +9,23 @@ prints no result line):
  2. build: compile the hand-written kernels (hipie_torch/csrc/*.cu) for sm_90a,
     one nvcc per source in parallel, and print nvcc's register and
     shared-memory report.
- 3. kernels: every kernel of the serving paths against its plain PyTorch
-    version on the card at the paths' shapes, with max errors, tolerances and
-    times (CUDA events around a CUDA graph of calls, so that the small shapes
-    show the card's time and not the host's); each kernel's bound (operations
-    over the peak rate of their type, or bytes over the HBM rate, whichever is
-    larger) and, where one PyTorch call computes the same function, that
-    call's time (SDPA with the rel-pos bias prebuilt as a bf16 mask for K-A,
-    einsum for K-C; the port never calls them); and the ``flat4`` MSDA
-    formulation (K-C) against the fused one (K-B) at the R50 encoder shape.
-    K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform and local
-    locations), decoders and MaskDINO decoders in bf16, and the R50 ones and
-    the ViT-H encoder in f32; its record adds each case's numbers and the
-    encoder's corner-row traffic and rate.
+ 3. kernels: every kernel of the serving and training paths against its
+    plain PyTorch version on the card at the paths' shapes, with max errors,
+    tolerances and times (CUDA events around a CUDA graph of calls, so that the
+    small shapes show the card's time and not the host's); each kernel's bound
+    (operations over the peak rate of their type, or bytes over the HBM rate,
+    whichever is larger) and, where one PyTorch call computes the same
+    function, that call's time (SDPA with the rel-pos bias prebuilt as a bf16
+    mask for K-A, einsum for K-C; the port never calls them); and the
+    ``flat4`` MSDA formulation (K-C) against the fused one (K-B) at the R50
+    encoder shape. K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform
+    and local locations), decoders and MaskDINO decoders in bf16, the R50 ones
+    and the ViT-H encoder in f32, and the training step's three shapes at
+    batch 2; its record adds each case's numbers and the encoder's corner-row
+    traffic and rate. K-D (the MSDA backward) runs MSDA_BWD_CASES, every
+    training shape in bf16 and f32 (the encoder also with local locations),
+    against the plain version's autograd (``check_msda_bwd``), its plain time
+    by CUDA events around eager calls (autograd does not go into a graph).
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
     the same weights run on the CPU through the plain versions, once with
     fused MSDA and once with ``flat4``.
@@ -40,8 +44,20 @@ prints no result line):
     grounding call, 1 PartSegmDemo panoptic + parts call (exact K-B counts),
     then the panoptic call through a second model with msda_method="flat4"
     and the same weights (exact K-C counts); then one f32 request through both
-    methods, compared before any top-k. Every shape at which phases 5 and 6
-    launched K-B must be one that phase 3 checked.
+    methods, compared before any top-k.
+ 7. train: r50_coco_panoptic() trained at full width through
+    hipie_torch.train (create_train_state, make_train_step, Trainer): f32
+    master weights, bf16 autocast compute, random init from a seeded
+    torch.Generator, TRAIN_STEPS optimizer steps on synthetic batches from the
+    seed (2 canvases of 1024x1024, one with a pad band; a 256-token prompt; 100
+    GT slots, a different count of things and stuff valid per image; masks at
+    256x256). It asserts every loss term finite, every trainable parameter a
+    finite gradient and every frozen one none (the optimizer's labels), the
+    parameters moved, the lr equal to the schedule, and K-B and K-D launched
+    exactly 21 times each a step; it prints the ms per step, peak memory and
+    matcher host syncs per step.
+Every shape at which phases 5 to 7 launched K-B, and every shape at which
+phase 7 launched K-D, must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -50,9 +66,11 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -78,20 +96,41 @@ VITH_S = sum(h * w for h, w in VITH_LEVELS)        # 21760 encoder queries
 # first; the predictor's f32 request), and both encoders with local
 # locations. main() fails if the paths launch K-B at a shape not here.
 MSDA_M, MSDA_D, MSDA_P = 8, 32, 4
+# The R50 training step (hipie_torch.train): batch 2 of 1024x1024 canvases, so
+# the ViT-H levels; encoder Q = S, decoder 200 CDN + 10 bg + 900 fg queries,
+# MaskDINO decoder 200 seg-DN + 300 queries (levels smallest first).
+TRAIN_B = 2
+TRAIN_DEC_Q = 200 + 10 + 900
+TRAIN_MD_Q = 200 + 300
 MSDA_CASES = (
-    # name, levels, Q, dtype, locations
-    ("encoder", VITH_LEVELS, VITH_S, torch.bfloat16, "uniform"),
-    ("encoder_local", VITH_LEVELS, VITH_S, torch.bfloat16, "local"),
-    ("decoder", VITH_LEVELS, 910, torch.bfloat16, "uniform"),
-    ("maskdino", VITH_LEVELS[::-1], 300, torch.bfloat16, "uniform"),
-    ("encoder_f32", VITH_LEVELS, VITH_S, torch.float32, "uniform"),
-    ("r50_encoder", R50_LEVELS, R50_S, torch.bfloat16, "uniform"),
-    ("r50_encoder_local", R50_LEVELS, R50_S, torch.bfloat16, "local"),
-    ("r50_decoder", R50_LEVELS, 910, torch.bfloat16, "uniform"),
-    ("r50_maskdino", R50_LEVELS[::-1], 300, torch.bfloat16, "uniform"),
-    ("r50_encoder_f32", R50_LEVELS, R50_S, torch.float32, "uniform"),
-    ("r50_decoder_f32", R50_LEVELS, 910, torch.float32, "uniform"),
-    ("r50_maskdino_f32", R50_LEVELS[::-1], 300, torch.float32, "uniform"),
+    # name, levels, B, Q, dtype, locations
+    ("encoder", VITH_LEVELS, 1, VITH_S, torch.bfloat16, "uniform"),
+    ("encoder_local", VITH_LEVELS, 1, VITH_S, torch.bfloat16, "local"),
+    ("decoder", VITH_LEVELS, 1, 910, torch.bfloat16, "uniform"),
+    ("maskdino", VITH_LEVELS[::-1], 1, 300, torch.bfloat16, "uniform"),
+    ("encoder_f32", VITH_LEVELS, 1, VITH_S, torch.float32, "uniform"),
+    ("r50_encoder", R50_LEVELS, 1, R50_S, torch.bfloat16, "uniform"),
+    ("r50_encoder_local", R50_LEVELS, 1, R50_S, torch.bfloat16, "local"),
+    ("r50_decoder", R50_LEVELS, 1, 910, torch.bfloat16, "uniform"),
+    ("r50_maskdino", R50_LEVELS[::-1], 1, 300, torch.bfloat16, "uniform"),
+    ("r50_encoder_f32", R50_LEVELS, 1, R50_S, torch.float32, "uniform"),
+    ("r50_decoder_f32", R50_LEVELS, 1, 910, torch.float32, "uniform"),
+    ("r50_maskdino_f32", R50_LEVELS[::-1], 1, 300, torch.float32, "uniform"),
+    ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
+    ("train_decoder", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("train_maskdino", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+)
+# K-D's cases: every shape the training phase launches it at (bf16), each also
+# in f32, and the encoder with local locations; main() fails if the training
+# phase launches K-D at a shape not here.
+MSDA_BWD_CASES = (
+    ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
+    ("train_encoder_local", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "local"),
+    ("train_decoder", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("train_maskdino", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S, torch.float32, "uniform"),
+    ("train_decoder_f32", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.float32, "uniform"),
+    ("train_maskdino_f32", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.float32, "uniform"),
 )
 # Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
 PEAK_BF16_TENSOR = 989e12        # FLOP/s, dense bf16 on the tensor cores
@@ -189,8 +228,8 @@ def check_msda(what, got, want):
     return err, tol, rel
 
 
-def local_locations(rng: np.random.Generator, shapes, m: int, p: int) -> np.ndarray:
-    """(1, S, m, L, p, 2) f32: query i (position i of the level-ordered map)
+def local_locations(rng: np.random.Generator, shapes, m: int, p: int, b: int = 1) -> np.ndarray:
+    """(b, S, m, L, p, 2) f32: query i (position i of the level-ordered map)
     samples each level l at its own pixel centre plus N(0, 2) pixels of level
     l per point and axis: the locality MSDeformAttn's radial grid gives."""
     centres = []
@@ -199,24 +238,24 @@ def local_locations(rng: np.random.Generator, shapes, m: int, p: int) -> np.ndar
         centres.append(np.stack([xs.ravel(), ys.ravel()], -1))
     c = np.concatenate(centres).astype(np.float32)                        # (S, 2) as (x, y)
     wh = np.array([[w, h] for h, w in shapes], np.float32)               # (L, 2)
-    off = rng.standard_normal((1, len(c), m, len(shapes), p, 2), dtype=np.float32) * 2.0
+    off = rng.standard_normal((b, len(c), m, len(shapes), p, 2), dtype=np.float32) * 2.0
     return c[None, :, None, None, None, :] + off / wh[None, None, None, :, None, :]
 
 
-def msda_inputs(levels, q: int, dtype, locations: str, dev, seed: int):
-    """K-B's inputs for one of MSDA_CASES, made from ``seed`` with numpy: value
-    (1, S, 8, 32) N(0, 1), locations (1, Q, 8, L, 4, 2) uniform over
-    [-0.05, 1.05] or local (Q = S), weights (1, Q, 8, L, 4) summing to 1 over
-    (L, P)."""
+def msda_inputs(levels, q: int, dtype, locations: str, dev, seed: int, b: int = 1):
+    """MSDA inputs for one of MSDA_CASES or MSDA_BWD_CASES, made from ``seed``
+    with numpy: value (b, S, 8, 32) N(0, 1), locations (b, Q, 8, L, 4, 2)
+    uniform over [-0.05, 1.05] (some samples off the map) or local (Q = S),
+    weights (b, Q, 8, L, 4) summing to 1 over (L, P)."""
     rng = np.random.default_rng(seed)
     s, n_levels = sum(h * w for h, w in levels), len(levels)
-    value = rng.standard_normal((1, s, MSDA_M, MSDA_D), dtype=np.float32)
+    value = rng.standard_normal((b, s, MSDA_M, MSDA_D), dtype=np.float32)
     if locations == "local":
         assert q == s, "local locations need Q = S"
-        loc = local_locations(rng, levels, MSDA_M, MSDA_P)
+        loc = local_locations(rng, levels, MSDA_M, MSDA_P, b)
     else:
-        loc = rng.uniform(-0.05, 1.05, (1, q, MSDA_M, n_levels, MSDA_P, 2)).astype(np.float32)
-    w = rng.uniform(0, 1, (1, q, MSDA_M, n_levels, MSDA_P)).astype(np.float32)
+        loc = rng.uniform(-0.05, 1.05, (b, q, MSDA_M, n_levels, MSDA_P, 2)).astype(np.float32)
+    w = rng.uniform(0, 1, (b, q, MSDA_M, n_levels, MSDA_P)).astype(np.float32)
     w /= w.sum(axis=(-1, -2), keepdims=True)
     return (torch.from_numpy(value).to(dev, dtype), torch.from_numpy(loc).to(dev),
             torch.from_numpy(w).to(dev))
@@ -312,8 +351,10 @@ def phase_kernels(dev, card):
     records.append(msda_record)
     records.append(_check_msda_reduce(dev))
     _check_flat4(dev, rng)
+    bwd_record, bwd_cases = _check_msda_bwd(dev, card)
+    records.append(bwd_record)
     kernels.reset_launch_counts()      # launches made for comparison do not count
-    return records, msda_cases
+    return records, msda_cases, bwd_cases
 
 
 def _check_msda(dev, card):
@@ -330,8 +371,8 @@ def _check_msda(dev, card):
     if constants != (BLOCK_THREADS, TABLE_CHUNK, GATHER_BATCH, MAX_PAIRS):
         raise AssertionError(f"K-B's built constants {constants} differ from the wrapper's")
     cases = []
-    for i, (name, levels, q, dtype, locations) in enumerate(MSDA_CASES):
-        value, loc, w = msda_inputs(levels, q, dtype, locations, dev, SEED + i)
+    for i, (name, levels, b, q, dtype, locations) in enumerate(MSDA_CASES):
+        value, loc, w = msda_inputs(levels, q, dtype, locations, dev, SEED + i, b)
         got = ms_deform_attn(value, levels, loc, w)
         want = ms_deform_attn_plain(value, levels, loc, w)
         torch.cuda.synchronize()
@@ -339,36 +380,37 @@ def _check_msda(dev, card):
         ms = cuda_time_ms(lambda: ms_deform_attn(value, levels, loc, w), 20)
         plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, levels, loc, w), 5)
         traffic = corner_bytes(value, loc)
-        c = {"case": name, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
+        c = {"case": name, "b": b, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
              "locations": locations, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
              "tol": tol, "rel_err": rel, "corner_bytes": traffic,
              "corner_rate_tbs": traffic / ms / 1e9,
-             "plan": kernel_plan(MSDA_D, value.element_size(), q * MSDA_M)._asdict(),
+             "plan": kernel_plan(MSDA_D, value.element_size(), b * q * MSDA_M)._asdict(),
              "shape": msda_shape(value, levels, loc, w)}
         cases.append(c)
-        log(f"[kernels] ms_deform_attn {name} Q={q} S={c['s']} M={MSDA_M} D={MSDA_D} "
+        log(f"[kernels] ms_deform_attn {name} B={b} Q={q} S={c['s']} M={MSDA_M} D={MSDA_D} "
             f"L={len(levels)} P={MSDA_P} {c['dtype']}, {locations} locations: max abs err "
             f"{err:.3e} (tol {tol:.3e}), relative norm err {rel:.3e}, kernel {ms:.4f} ms, plain "
             f"{plain_ms:.3f} ms, corner rows {traffic / 1e6:.1f} MB at "
             f"{c['corner_rate_tbs']:.2f} TB/s; plan {c['plan']}")
         if name == "encoder":
             # per sample: 4 corners x D channels, a multiply-add each, in f32
-            b = bound(8.0 * loc[..., 0].numel() * MSDA_D, nbytes(value, loc, w, got), PEAK_F32,
-                      "f32 cores")
+            bnd = bound(8.0 * loc[..., 0].numel() * MSDA_D, nbytes(value, loc, w, got), PEAK_F32,
+                        "f32 cores")
             enc = c
         del value, loc, w, got, want
-    log(f"[kernels] ms_deform_attn bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
-        f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / enc['ms']:.1f}% of "
+    log(f"[kernels] ms_deform_attn bound {bnd['bound_ms']:.4f} ms ({bnd['bound_unit']}: "
+        f"{bnd['bound_bytes'] / 1e6:.1f} MB), kernel at "
+        f"{100 * bnd['bound_ms'] / enc['ms']:.1f}% of "
         f"the bound at the ViT-H encoder shape; no single PyTorch call computes MSDA "
         f"(library_ms null); card {card}")
     record = {"name": "ms_deform_attn", "route": "cuda",
               "source": "hipie_torch/csrc/ms_deform_attn.cu",
               "replaces": "hipie_tpu/ops/ms_deform_attn.py:719",
               "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": enc["ms"],
-              "plain_ms": enc["plain_ms"], **b, "library_ms": None,
+              "plain_ms": enc["plain_ms"], **bnd, "library_ms": None,
               "library_note": "no single PyTorch call computes MSDA: the nearest is one "
                               "grid_sample per level plus a weighted sum, the plain version",
-              "shapes": {c["case"]: {k: c[k] for k in ("q", "s", "dtype", "locations", "ms",
+              "shapes": {c["case"]: {k: c[k] for k in ("b", "q", "s", "dtype", "locations", "ms",
                                                        "plain_ms", "max_abs_err", "tol",
                                                        "rel_err", "plan")}
                          for c in cases},
@@ -387,9 +429,7 @@ def msda_ms_per_request(cases, counts, local: bool = False) -> float:
 
 def check_msda_coverage(cases, ran) -> None:
     """Fails if the paths launched K-B at a shape no case checked."""
-    missing = set(ran) - {c["shape"] for c in cases}
-    if missing:
-        raise AssertionError(f"K-B ran at shapes chip_smoke.py does not check: {sorted(missing)}")
+    check_coverage("K-B", cases, ran)
 
 
 def _check_msda_reduce(dev):
@@ -483,6 +523,142 @@ def _check_flat4(dev, rng):
             raise AssertionError(f"flat4 disagrees with fused MSDA: {err} > {tol}")
 
 
+def cuda_time_ms_eager(fn, iters: int) -> float:
+    """Mean ms of ``fn`` by CUDA events around ``iters`` eager calls after one
+    warm-up: for calls that cannot go into a CUDA graph (autograd), and slow
+    enough that the host's launch cost hides behind the card."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+LATTICE_MARGIN = 1e-3        # pixels
+
+
+def off_lattice(loc, levels) -> torch.Tensor:
+    """(B, Q, M, L, P) bool: samples whose pixel coordinates (x = loc_x W - 0.5,
+    y = loc_y H - 0.5) lie more than LATTICE_MARGIN from every integer."""
+    keep = []
+    for lvl, (h, w) in enumerate(levels):
+        x = loc[:, :, :, lvl, :, 0].double() * w - 0.5
+        y = loc[:, :, :, lvl, :, 1].double() * h - 0.5
+        keep.append(((x - x.round()).abs() > LATTICE_MARGIN)
+                    & ((y - y.round()).abs() > LATTICE_MARGIN))
+    return torch.stack(keep, 3)
+
+
+def check_msda_bwd(what, got, want, loc, levels):
+    """Relative norm errors of K-D's (grad value, grad locations, grad weights)
+    against the plain version's autograd; raises past a limit. Both take the
+    same inputs and sum the same f32 products in other orders (K-D's scatter by
+    atomics, in an order that changes from run to run): 1e-5 in f32. In bf16
+    both read the same bf16 values and cotangent exactly and compute in f32;
+    each rounds its value gradient to bf16 once (about 2^-9 relative per
+    element, so ~1.5e-3 in norm): 4e-3 for the value gradient, 1e-4 for the
+    f32 location and weight gradients, where a sample dropped or counted twice
+    moves each by several %. Bilinear interpolation has no derivative on the
+    pixel lattice, and K-D (x = loc W - 0.5) and grid_sample (from grid =
+    2 loc - 1) round the pixel coordinate differently, so a sample within an ulp
+    of the lattice may take the other side's one-sided derivative: the location
+    gradient is compared on samples more than LATTICE_MARGIN (1e-3 pixel, some
+    hundred ulps at W = 128) off it (about 0.4% are left out; both must be
+    finite everywhere)."""
+    errs = []
+    keep = off_lattice(loc, levels)[..., None].expand_as(loc)
+    for name, g, w in zip(("value", "loc", "weights"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what} grad {name}: {g.dtype} {tuple(g.shape)} against "
+                                 f"{w.dtype} {tuple(w.shape)}, or not finite")
+        g, w = g.float(), w.float()
+        if name == "loc":
+            g, w = g[keep], w[keep]
+        rel = ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+        if got[0].dtype == torch.float32:
+            tol = 1e-5
+        else:
+            tol = 4e-3 if name == "value" else 1e-4
+        if not rel <= tol:
+            raise AssertionError(f"{what} grad {name} disagrees with the plain version's "
+                                 f"autograd: relative norm err {rel} (tol {tol})")
+        errs.append((rel, tol, (g - w).abs().max().item()))
+    return errs, 1.0 - keep.float().mean().item()
+
+
+def _check_msda_bwd(dev, card):
+    """K-D at every case of MSDA_BWD_CASES: held to check_msda_bwd's limits
+    against the plain version's autograd, both timed. Returns the record (the
+    training encoder's bf16 time, bound and plain time, and every case's
+    numbers under "shapes") and the cases."""
+    from hipie_torch.ops.ms_deform_attn import (backward_plan, ms_deform_attn_backward,
+                                                ms_deform_attn_backward_plain)
+
+    cases = []
+    for i, (name, levels, b, q, dtype, locations) in enumerate(MSDA_BWD_CASES):
+        value, loc, w = msda_inputs(levels, q, dtype, locations, dev, SEED + 100 + i, b)
+        gout = torch.randn((b, q, MSDA_M * MSDA_D), generator=torch.Generator(
+            device=dev).manual_seed(SEED + i), device=dev).to(dtype)
+        got = ms_deform_attn_backward(value, levels, loc, w, gout)
+        want = ms_deform_attn_backward_plain(value, levels, loc, w, gout)
+        torch.cuda.synchronize()
+        errs, left_out = check_msda_bwd(f"ms_deform_attn_bwd ({name})", got, want, loc, levels)
+        ms = cuda_time_ms(lambda: ms_deform_attn_backward(value, levels, loc, w, gout), 10)
+        plain_ms = cuda_time_ms_eager(
+            lambda: ms_deform_attn_backward_plain(value, levels, loc, w, gout), 3)
+        # bytes: value, locations, weights and cotangent read once; the f32 value
+        # gradient, the location and weight gradients written once. Operations:
+        # per sample and corner, a D-long dot and a D-long scaled add, in f32.
+        samples = loc[..., 0].numel()
+        bnd = bound(4.0 * 4 * samples * MSDA_D,
+                    nbytes(value, loc, w, gout) + value.numel() * 4 + nbytes(loc, w),
+                    PEAK_F32, "f32 cores")
+        c = {"case": name, "b": b, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
+             "locations": locations, "ms": ms, "plain_ms": plain_ms,
+             "rel_err": {k: e[0] for k, e in zip(("value", "loc", "weights"), errs)},
+             "tol": {k: e[1] for k, e in zip(("value", "loc", "weights"), errs)},
+             "max_abs_err": max(e[2] for e in errs), "bound_ms": bnd["bound_ms"],
+             "loc_left_out": left_out,
+             "atomic_adds": samples * 4 * MSDA_D,
+             "plan": backward_plan(MSDA_D, value.element_size(), 16),
+             "shape": msda_shape(value, levels, loc, w)}
+        cases.append(c)
+        log(f"[kernels] ms_deform_attn_bwd {name} B={b} Q={q} S={c['s']} M={MSDA_M} "
+            f"D={MSDA_D} L={len(levels)} P={MSDA_P} {c['dtype']}, {locations} locations: "
+            f"relative norm err value/loc/weights {[f'{e[0]:.2e}' for e in errs]} (tol "
+            f"{[e[1] for e in errs]}; {100 * left_out:.2f}% of locations on the lattice left out), "
+            f"kernel {ms:.4f} ms, plain (autograd) {plain_ms:.3f} ms, "
+            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_unit']}, "
+            f"{bnd['bound_bytes'] / 1e6:.1f} MB), {c['atomic_adds'] / 1e6:.1f} M f32 atomic adds "
+            f"at {c['atomic_adds'] / ms / 1e6:.1f} G/s; card {card}")
+        if name == "train_encoder":
+            enc, b_enc = c, bnd
+        del value, loc, w, gout, got, want
+    record = {"name": "ms_deform_attn_bwd", "route": "cuda",
+              "source": "hipie_torch/csrc/ms_deform_attn_bwd.cu",
+              "replaces": "hipie_tpu/ops/ms_deform_attn.py:884",
+              "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": enc["ms"],
+              "plain_ms": enc["plain_ms"], **b_enc, "library_ms": None,
+              "library_note": "no single PyTorch call computes the MSDA backward; the plain "
+                              "version is grid_sample's autograd per level",
+              "shapes": {c["case"]: {k: c[k] for k in ("b", "q", "s", "dtype", "locations", "ms",
+                                                       "plain_ms", "bound_ms", "rel_err", "tol",
+                                                       "loc_left_out", "plan")}
+                         for c in cases}}
+    return record, cases
+
+
+def check_coverage(what, cases, ran) -> None:
+    """Fails if a path launched a kernel at a shape no case checked."""
+    missing = set(ran) - {c["shape"] for c in cases}
+    if missing:
+        raise AssertionError(f"{what} ran at shapes chip_smoke.py does not check: "
+                             f"{sorted(missing)}")
+
+
 def _tiny_config():
     from hipie_torch.config import apply_overrides, tiny_test_config
     from hipie_torch.models.backbone.vit import VIT_VARIANTS
@@ -562,17 +738,19 @@ def check_result(res, cfg):
 
 
 @contextlib.contextmanager
-def timing_calls(module, name, record=None):
+def timing_calls(module, name, record=None, timed: bool = True):
     """Within the block ``module.name`` (a kernel wrapper as the model imports
-    it) runs with a pair of CUDA events around each call, and ``record``, if
-    given, is called with each call's arguments; yields the list the (start,
-    end) pairs go to."""
+    it) runs with a pair of CUDA events around each call (unless ``timed`` is
+    false), and ``record``, if given, is called with each call's arguments;
+    yields the list the (start, end) pairs go to."""
     events = []
     inner = getattr(module, name)
 
     def wrapped(*args, **kwargs):
         if record is not None:
             record(*args, **kwargs)
+        if not timed:
+            return inner(*args, **kwargs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = inner(*args, **kwargs)
@@ -684,7 +862,7 @@ def phase_serve(dev, card):
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
     want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
-            "msda_reduce": 0}
+            "msda_reduce": 0, "ms_deform_attn_bwd": 0}
     log(f"[serve] kernel launches {launches}, expected {want} "
         f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
     if launches != want:
@@ -798,7 +976,8 @@ def phase_predict(dev, card):
         raise AssertionError("part segmentation output is malformed")
     fused_launches = dict(kernels.LAUNCHES)
     n_passes = 2 + 1 + 2
-    want = {"vit_attention": 0, "ms_deform_attn": n_msda * n_passes, "msda_reduce": 0}
+    want = {"vit_attention": 0, "ms_deform_attn": n_msda * n_passes, "msda_reduce": 0,
+            "ms_deform_attn_bwd": 0}
     log(f"[predict] fused: kernel launches {fused_launches}, expected {want} "
         f"({n_msda} MSDA layers x {n_passes} model passes)")
     if fused_launches != want:
@@ -809,7 +988,8 @@ def phase_predict(dev, card):
                 kernel="msda_reduce")
     _check_prediction(res, "detection")
     flat4_launches = dict(kernels.LAUNCHES)
-    want = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": n_msda}
+    want = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": n_msda,
+            "ms_deform_attn_bwd": 0}
     log(f"[predict] flat4: kernel launches {flat4_launches}, expected {want}")
     if flat4_launches != want:
         raise AssertionError(f"launch counts {flat4_launches} != {want}")
@@ -845,6 +1025,120 @@ def phase_predict(dev, card):
     return flat4_launches
 
 
+TRAIN_STEPS = 4
+TRAIN_N = 100                 # GT slots (max_insts_num)
+
+
+def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
+    """r50_coco_panoptic() trained at full width through make_train_step and
+    Trainer: f32 master weights, bf16 autocast compute, seeded random init,
+    TRAIN_STEPS optimizer steps on synthetic batches. Returns (per-step kernel
+    launches, K-B shapes, K-D shapes)."""
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    import hipie_torch.train.step as step_module
+    from hipie_torch import kernels
+    from hipie_torch.losses import matcher
+    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.train.optimizer import lr_schedule
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.train.synthetic import train_batches
+    from hipie_torch.train.trainer import Trainer
+
+    cfg = dataclasses.replace(cfg or r50_coco_panoptic(),
+                              output_dir=tempfile.mkdtemp(prefix="hipie_train_"))
+    mc = cfg.model
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=SEED, device=dev)
+    model, opt = state.model, state.optimizer
+    n_params = sum(p.numel() for p in model.parameters())
+    n_train = sum(p.numel() for p in opt.params)
+    before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
+    log(f"[train] HIPIEModel(r50_coco_panoptic, train=True) {n_params / 1e6:.1f} M params "
+        f"({n_train / 1e6:.1f} M trainable), f32 master weights, {mc.dtype} compute, built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
+              + mc.maskdino.dec_layers)
+    inner = make_train_step(cfg, state, device=dev)
+    per_step, terms = [], []
+
+    def train_step(st, batch, keys):
+        k0, s0 = dict(kernels.LAUNCHES), matcher.HOST_SYNCS[0]
+        out = inner(st, batch, keys)
+        per_step.append(({k: kernels.LAUNCHES[k] - k0[k] for k in k0},
+                         matcher.HOST_SYNCS[0] - s0))
+        return out
+
+    weight_fn = step_module.apply_weight_dict
+
+    def recording_weights(losses, lcfg):
+        terms.append(dict(losses))
+        return weight_fn(losses, lcfg)
+
+    batches = train_batches(cfg, TRAIN_STEPS, SEED, img=img, slots=slots, batch=TRAIN_B)
+    trainer = Trainer(cfg, state, train_step, iter(batches), log_period=1, device=dev)
+    kb_shapes, kd_shapes = [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    step_module.apply_weight_dict = recording_weights
+    try:
+        with timing_calls(msda_module, "ms_deform_attn",
+                          lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)), timed=False), \
+                timing_calls(msda_ops, "ms_deform_attn_backward",
+                             lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False):
+            kernels.reset_launch_counts()
+            state = trainer.train(max_iter=TRAIN_STEPS)
+            launches = dict(kernels.LAUNCHES)
+    finally:
+        step_module.apply_weight_dict = weight_fn
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+
+    for i, d in enumerate(terms):
+        bad = [k for k, v in d.items() if not torch.isfinite(torch.as_tensor(v)).all()]
+        if bad:
+            raise AssertionError(f"train: non-finite loss terms {bad} in weighted dict {i}")
+    n_terms = sum(len(d) for d in terms[:2])
+    labels = opt.labels
+    zero_grad = []
+    for name, p in model.named_parameters():
+        if labels[name] == "frozen":
+            if p.requires_grad or p.grad is not None:
+                raise AssertionError(f"train: frozen parameter {name} has a gradient")
+            continue
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise AssertionError(f"train: trainable parameter {name} has no finite gradient")
+        if not p.grad.any():
+            zero_grad.append(name)
+        elif torch.equal(p.detach(), before[name]):
+            raise AssertionError(f"train: parameter {name} did not move in {TRAIN_STEPS} steps")
+    base_fn = lr_schedule(cfg.solver, cfg.solver.base_lr)
+    for i, h in enumerate(trainer.history):
+        if h["lr"] != base_fn(i) or not np.isfinite(h["total_loss"]):
+            raise AssertionError(f"train: step {i} lr {h['lr']} (schedule {base_fn(i)}), total "
+                                 f"loss {h['total_loss']}")
+    for g in opt.opt.param_groups:
+        want = opt.schedules[g["group"]](TRAIN_STEPS - 1)
+        if g["lr"] != want:
+            raise AssertionError(f"train: group {g['group']} lr {g['lr']} != schedule {want}")
+    want = {"ms_deform_attn": n_msda, "ms_deform_attn_bwd": n_msda}
+    for i, (counts, _) in enumerate(per_step):
+        if any(counts[k] != n for k, n in want.items()) or counts["vit_attention"]:
+            raise AssertionError(f"train: step {i} launched {counts}, expected {want} a step")
+    times = [h["time_s"] * 1e3 for h in trainer.history]
+    syncs = [n for _, n in per_step]
+    log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_B} at {img}x{img}: total loss "
+        f"{[round(h['total_loss'], 4) for h in trainer.history]}, lr (base group) "
+        f"{[h['lr'] for h in trainer.history]}, grad norm "
+        f"{[round(h['grad_norm'], 4) for h in trainer.history]}; {n_terms} loss terms a step, "
+        f"all finite; {len(zero_grad)} trainable tensors with an all-zero gradient "
+        f"{zero_grad[:6]}")
+    log(f"[train] ms per step {[round(t, 1) for t in times]}; after the first: mean "
+        f"{np.mean(times[1:]):.1f} ms; peak memory {peak:.2f} GiB; matcher host syncs per step "
+        f"{syncs}; kernel launches per step {per_step[-1][0]}; card {card}")
+    return ({"launches": launches, "per_step": per_step[-1][0], "ms_per_step": times,
+             "peak_gib": peak, "syncs": syncs}, kb_shapes, kd_shapes)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -854,19 +1148,29 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    records, msda_cases = phase_kernels(dev, card)
+    records, msda_cases, bwd_cases = phase_kernels(dev, card)
     phase_reference(dev)
     launches, per_request, kb_per_request = phase_serve(dev, card)
     predict_shapes = []
     with timing_msda(predict_shapes):
         launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
-    check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes if s])
+    train, train_kb, train_kd = phase_train(dev, card)
+    check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
+                                     if s])
+    check_coverage("K-D", bwd_cases, train_kd)
+    launches["ms_deform_attn_bwd"] = train["launches"]["ms_deform_attn_bwd"]
     for r in records:
         r["launches"] = launches[r["name"]]
-        r["launches_per_request"] = per_request[r["name"]]
+        if r["name"] in per_request:
+            r["launches_per_request"] = per_request[r["name"]]
     next(r for r in records if r["name"] == "msda_reduce")["launches_per_flat4_call"] = (
         launches["msda_reduce"])
     kb = next(r for r in records if r["name"] == "ms_deform_attn")
+    kb["launches_per_train_step"] = train["per_step"]["ms_deform_attn"]
+    kd = next(r for r in records if r["name"] == "ms_deform_attn_bwd")
+    kd["launches_per_train_step"] = train["per_step"]["ms_deform_attn_bwd"]
+    kd["train_ms_per_step"] = train["ms_per_step"]
+    kd["train_peak_gib"] = train["peak_gib"]
     kb["launches_per_request_by_case"] = {
         c["case"]: kb_per_request[c["shape"]] for c in msda_cases
         if c["locations"] == "uniform" and c["shape"] in kb_per_request}

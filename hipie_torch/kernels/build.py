@@ -43,6 +43,8 @@ _SIGNATURES = {
                              _int, _int, _int, _int, _int, _int, _vp],
     "hipie_ms_deform_attn_constants": [_vp],
     "hipie_msda_reduce": [_vp, _vp, _vp, ctypes.c_longlong, _int, _int, _int, _vp],
+    "hipie_ms_deform_attn_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
+                                 _int, _int, _int, _int, _int, _int, _int, _vp],
 }
 
 

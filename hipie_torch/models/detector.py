@@ -1,22 +1,25 @@
-"""Detector, inference branch: backbone -> input projections -> VL transformer ->
-heads -> CondInst mask head -> MaskDINO stuff branch.
+"""Detector: backbone -> input projections -> VL transformer -> heads ->
+CondInst mask head -> MaskDINO stuff branch.
 
 Counterpart of hipie_tpu/models/detector.py (reference ddetrs_dn.py and
 deformable_detr.py). The module tree carries the reference's state_dict
 names: ``detr.backbone.0.backbone``, ``detr.input_proj.N``,
 ``detr.transformer``, ``detr.bbox_embed.N``, ``detr.class_embed.N``,
 ``detr.iou_head.N`` under the outer ``detr``, beside ``controller``,
-``mask_head``, ``mask_dino`` and ``mask_dino_cls_embed.N``. Only the heads that
-inference calls are built: the last decoder layer's class and IoU heads, the
-encoder heads, and the last MaskDINO class projection, as the JAX package's
-inference ``init`` creates exactly those. ``msda_method`` ("fused" or "flat4")
-reaches every MSDeformAttn: 6 encoder, 6 decoder and 9 MaskDINO decoder layers
-in the presets.
+``mask_head``, ``label_enc``, ``mask_dino`` and ``mask_dino_cls_embed.N``. An
+inference model builds only the heads that inference calls (the last decoder
+layer's class and IoU heads, the encoder heads, the last MaskDINO class
+projection), as the JAX package's inference ``init`` creates exactly those;
+``train=True`` builds the rest, as its training ``init`` does: every layer's
+class and IoU heads, the CDN label embedding ``label_enc``, every MaskDINO
+class projection and MaskDINO's dn ``resizer``. ``msda_method`` ("fused" or
+"flat4") reaches every MSDeformAttn: 6 encoder, 6 decoder and 9 MaskDINO
+decoder layers in the presets.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -42,7 +45,7 @@ class _Joiner(nn.Module):
 class DeformableDETR(nn.Module):
     """The reference's ``detr.detr``: backbone, projections, transformer, heads."""
 
-    def __init__(self, c: ModelConfig, msda_method: str = "fused"):
+    def __init__(self, c: ModelConfig, msda_method: str = "fused", train: bool = False):
         super().__init__()
         tc = c.transformer
         backbone, chans = build_backbone(c.backbone)
@@ -59,35 +62,41 @@ class DeformableDETR(nn.Module):
         n_dec = tc.num_decoder_layers
         self.bbox_embed = nn.ModuleList(MLP(tc.d_model, tc.d_model, 4, 3)
                                         for _ in range(n_dec + 1))
-        last = str(n_dec - 1)
+        layers = [str(i) for i in range(n_dec)] if train else [str(n_dec - 1)]
         enc_cls = (StillClassifier(tc.d_model) if c.still_cls_for_encoder
                    else VLAlign(c.text.hidden_size, tc.d_model))
-        self.class_embed = nn.ModuleDict({last: VLAlign(c.text.hidden_size, tc.d_model),
-                                          str(n_dec): enc_cls})
+        self.class_embed = nn.ModuleDict({**{i: VLAlign(c.text.hidden_size, tc.d_model)
+                                             for i in layers}, str(n_dec): enc_cls})
         if c.use_iou_head:
-            self.iou_head = nn.ModuleDict({last: nn.Linear(tc.d_model, 1)})
+            self.iou_head = nn.ModuleDict({i: nn.Linear(tc.d_model, 1) for i in layers})
 
 
 class HIPIEDetector(nn.Module):
-    def __init__(self, c: ModelConfig, msda_method: str = "fused"):
+    def __init__(self, c: ModelConfig, msda_method: str = "fused", train: bool = False):
         super().__init__()
         if c.transformer.dropout != 0.0:
             raise NotImplementedError("transformer.dropout is not implemented")
         self.cfg = c
+        self.train_heads = train
         tc = c.transformer
-        self.detr = DeformableDETR(c, msda_method)
+        self.detr = DeformableDETR(c, msda_method, train)
         mh = c.mask_head
         self.weight_nums, self.bias_nums = dynamic_conv_param_sizes(
             tc.d_model // 32, mh.dynamic_mask_channels, mh.num_dynamic_layers, mh.use_rel_coord)
         self.controller = MLP(tc.d_model, tc.d_model,
                               sum(self.weight_nums) + sum(self.bias_nums), 3)
         self.mask_head = MaskFeatureHead(tc.d_model)
+        if train:
+            # CDN label embedding (ddetrs_dn.py label_enc; DYNAMIC_LABEL_ENC off)
+            self.label_enc = nn.Embedding(c.num_classes, tc.d_model)
         if c.maskdino.enabled:
             chans = self.detr.feature_channels
-            self.mask_dino = MaskDINOHead(c.maskdino, chans["res3"], chans["res5"], msda_method)
+            self.mask_dino = MaskDINOHead(c.maskdino, chans["res3"], chans["res5"], msda_method,
+                                          train, c.text.hidden_size)
+            n_cls = c.maskdino.dec_layers + 2
             self.mask_dino_cls_embed = nn.ModuleDict({
-                str(c.maskdino.dec_layers + 1): VLAlign(c.text.hidden_size,
-                                                        c.maskdino.hidden_dim)})
+                str(i): VLAlign(c.text.hidden_size, c.maskdino.hidden_dim)
+                for i in (range(n_cls) if train else [n_cls - 1])})
 
     def _project_levels(self, features, pad_mask):
         d = self.cfg.transformer.d_model
@@ -108,27 +117,49 @@ class HIPIEDetector(nn.Module):
         return srcs, masks, poses
 
     def forward(self, images, pad_mask, lang_hidden, lang_masks, image_sizes,
-                task: str = "detection") -> Dict[str, Any]:
+                task: str = "detection", train: bool = False,
+                dn_labels: Optional[torch.Tensor] = None,
+                dn_valid: Optional[torch.Tensor] = None,
+                dn_refs_unact: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None,
+                maskdino_dn_refs: Optional[torch.Tensor] = None,
+                maskdino_dn_valid: Optional[torch.Tensor] = None,
+                maskdino_attn_mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """images (B, H, W, 3) normalised NHWC; pad_mask (B, H, W) True = pad;
         lang_hidden (B, L, lang_dim); lang_masks (B, L); image_sizes (B, 2) (h, w);
         task "detection" (class logits per token) or "grounding" (one logit
-        against the pooled expression)."""
+        against the pooled expression).
+
+        ``train=True`` (a model built with ``train=True``) returns the training
+        outputs instead of the inference ones: every layer's class logits
+        ("outputs_class"), IoU logits ("outputs_iou"), controller parameters
+        ("ctrl_params", f32) and input references ("layer_refs"), and
+        MaskDINO's training outputs with every prediction projected against the
+        prompt. The CDN arguments (from hipie_torch.models.dn.prepare_cdn) put
+        the noised queries in front of both decoders' queries."""
         c = self.cfg
         detr = self.detr
+        if train and not self.train_heads:
+            raise ValueError("HIPIEDetector: train=True needs a model built with train=True")
         features = detr.backbone[0].backbone(images)
         srcs, masks, poses = self._project_levels(features, pad_mask)
         n_dec = c.transformer.num_decoder_layers
+        dn_tgt = None
+        if dn_labels is not None:
+            dn_tgt = self.label_enc(dn_labels)
+            if dn_valid is not None:
+                dn_tgt = dn_tgt.masked_fill(~dn_valid[..., None], 0.0)
         t = detr.transformer(srcs, masks, poses, lang_hidden, lang_masks,
                              enc_class_head=detr.class_embed[str(n_dec)],
                              enc_bbox_head=detr.bbox_embed[n_dec],
-                             bbox_heads=detr.bbox_embed[:n_dec], task=task)
+                             bbox_heads=detr.bbox_embed[:n_dec], task=task, dn_tgt=dn_tgt,
+                             dn_refs_unact=dn_refs_unact, self_attn_mask=self_attn_mask)
         hs = t["hs"]
         l_hidden = t["lang_hidden"]
         if task == "grounding":
             lang_for_cls = agg_lang_feat(l_hidden, lang_masks)[:, None, :]
         else:
             lang_for_cls = l_hidden
-        last = str(n_dec - 1)
         outputs: Dict[str, Any] = {
             "outputs_coord": t["outputs_coord"],
             "enc_outputs_class": t["enc_outputs_class"],
@@ -136,11 +167,23 @@ class HIPIEDetector(nn.Module):
             "spatial_shapes": t["spatial_shapes"],
             "lang_hidden": l_hidden,
             "memory": t["memory"],
-            "pred_logits": detr.class_embed[last](hs[-1], lang_for_cls),
-            "pred_boxes": t["outputs_coord"][-1],
         }
-        if c.use_iou_head:
-            outputs["pred_boxious"] = detr.iou_head[last](hs[-1]).float()
+        if train:
+            outputs["outputs_class"] = torch.stack(
+                [detr.class_embed[str(i)](hs[i], lang_for_cls) for i in range(n_dec)])
+            if c.use_iou_head:
+                outputs["outputs_iou"] = torch.stack(
+                    [detr.iou_head[str(i)](hs[i]).float() for i in range(n_dec)])
+            outputs["ctrl_params"] = torch.stack(
+                [self.controller(hs[i]).float() for i in range(n_dec)])
+            outputs["layer_refs"] = torch.cat([t["init_reference"][None],
+                                               t["inter_references"][:-1]])
+        else:
+            last = str(n_dec - 1)
+            outputs["pred_logits"] = detr.class_embed[last](hs[-1], lang_for_cls)
+            outputs["pred_boxes"] = t["outputs_coord"][-1]
+            if c.use_iou_head:
+                outputs["pred_boxious"] = detr.iou_head[last](hs[-1]).float()
 
         # mask features from the first three encoder levels
         b = t["memory"].shape[0]
@@ -149,20 +192,38 @@ class HIPIEDetector(nn.Module):
             mem_maps.append(t["memory"][:, start:start + h * w].reshape(b, h, w, -1))
             start += h * w
         _, mask_feats = self.mask_head(mem_maps)
-        ctrl = self.controller(hs[-1])
-        ref2 = t["inter_references"][-2][..., :2]
-        scale = torch.stack([image_sizes[:, 1], image_sizes[:, 0]], -1).float()
-        outputs["pred_masks"] = dynamic_mask_with_coords(
-            mask_feats, ref2 * scale[:, None, :], ctrl, self.weight_nums, self.bias_nums,
-            c.mask_head.dynamic_mask_channels, mask_feat_stride=8,
-            mask_out_stride=c.mask_head.mask_out_stride, rel_coord=c.mask_head.use_rel_coord)
+        outputs["mask_feats"] = mask_feats
+        if not train:
+            ctrl = self.controller(hs[-1])
+            ref2 = t["inter_references"][-2][..., :2]
+            scale = torch.stack([image_sizes[:, 1], image_sizes[:, 0]], -1).float()
+            outputs["pred_masks"] = dynamic_mask_with_coords(
+                mask_feats, ref2 * scale[:, None, :], ctrl, self.weight_nums, self.bias_nums,
+                c.mask_head.dynamic_mask_channels, mask_feat_stride=8,
+                mask_out_stride=c.mask_head.mask_out_stride, rel_coord=c.mask_head.use_rel_coord)
         outputs["hs"] = hs
         outputs["inter_references"] = t["inter_references"]
         outputs["init_reference"] = t["init_reference"]
 
         if c.maskdino.enabled:
-            md = self.mask_dino(features, shared_memory_levels=mem_maps)
-            cls_head = self.mask_dino_cls_embed[str(c.maskdino.dec_layers + 1)]
-            md["pred_logits"] = cls_head(md["pred_logits"].to(hs.dtype), lang_for_cls)
+            n_cls = c.maskdino.dec_layers + 2
+            cls_heads = self.mask_dino_cls_embed
+            if not train:
+                md = self.mask_dino(features, shared_memory_levels=mem_maps)
+                md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"].to(hs.dtype),
+                                                             lang_for_cls)
+            else:
+                md = self.mask_dino(features, shared_memory_levels=mem_maps,
+                                    dn_refs_unact=maskdino_dn_refs, dn_valid=maskdino_dn_valid,
+                                    self_attn_mask=maskdino_attn_mask,
+                                    lang_pool=agg_lang_feat(l_hidden, lang_masks),
+                                    emit_embeds=True)
+                md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"], lang_for_cls)
+                md["aux"]["classes"] = [cls_heads[str(i)](x, lang_for_cls)
+                                        for i, x in enumerate(md["aux"]["classes"])]
+                # the two-stage ("interm") head takes the second-to-last projection
+                interm = md["interm_outputs"]
+                interm["pred_logits"] = cls_heads[str(n_cls - 2)](interm["pred_logits"],
+                                                                 lang_for_cls)
             outputs["maskdino"] = md
         return outputs

@@ -26,8 +26,9 @@ class VLAlign(nn.Module):
         emb = emb / emb.norm(dim=-1, keepdim=True).clamp(min=1e-12)
         w = self.dot_product_projection_text.weight
         tokens = self.dot_product_projection_text((emb / 2.0).to(w.dtype))
-        token_bias = emb @ self.bias_lang.float() + self.bias0.float()
-        logits = torch.einsum("bqc,blc->bql", x.float(), tokens.float())
+        with torch.autocast(x.device.type, enabled=False):      # logits stay f32
+            token_bias = emb @ self.bias_lang.float() + self.bias0.float()
+            logits = torch.einsum("bqc,blc->bql", x.float(), tokens.float())
         return logits / self.log_scale.float().exp() + token_bias[:, None, :]
 
 

@@ -24,7 +24,12 @@ from hipie_torch.models.text.bert import BertEncoder, parallel_det_block_mask
 
 
 class HIPIEModel(nn.Module):
-    """Inference model. Module names match the reference checkpoint.
+    """The model. Module names match the reference checkpoint.
+
+    ``train=True`` also builds the heads that only training uses (see
+    hipie_torch/models/detector.py), so that ``forward(..., train=True)`` can
+    return the training outputs, and the parameters ``create_train_state`` of
+    the JAX package makes load strictly.
 
     ``msda_method`` picks every MSDeformAttn's sampling core, as the JAX
     package's ``HIPIE_MSDA_METHOD`` does: "fused" (kernel K-B, the default) or
@@ -33,7 +38,8 @@ class HIPIEModel(nn.Module):
     """
 
     def __init__(self, cfg: ModelConfig, parallel_det: bool = False, sep_token_id: int = 1012,
-                 cls_token_id: int = 101, pad_token_id: int = 0, msda_method: str = "fused"):
+                 cls_token_id: int = 101, pad_token_id: int = 0, msda_method: str = "fused",
+                 train: bool = False):
         super().__init__()
         self.cfg = cfg
         self.parallel_det = parallel_det
@@ -44,7 +50,7 @@ class HIPIEModel(nn.Module):
             vocab_size=t.vocab_size, hidden_size=t.hidden_size, num_layers=t.num_layers,
             num_heads=t.num_heads, intermediate_size=t.intermediate_size,
             max_position_embeddings=t.max_position_embeddings)
-        self.detr = HIPIEDetector(cfg, msda_method)
+        self.detr = HIPIEDetector(cfg, msda_method, train)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
         mean = torch.tensor(self.cfg.pixel_mean, dtype=torch.float32, device=images.device)
@@ -62,16 +68,22 @@ class HIPIEModel(nn.Module):
 
     def forward(self, images, pad_mask, input_ids, lang_attn_mask, image_sizes,
                 task: str = "detection",
-                lang_hidden: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                lang_hidden: Optional[torch.Tensor] = None, train: bool = False,
+                **dn_kwargs) -> Dict[str, Any]:
         """images (B, H, W, 3) raw RGB (any numeric dtype); pad_mask (B, H, W) True = pad;
         input_ids / lang_attn_mask (B, L); image_sizes (B, 2) valid (h, w).
-        Pass ``lang_hidden`` from ``encode_text`` to reuse a fixed prompt's features."""
+        Pass ``lang_hidden`` from ``encode_text`` to reuse a fixed prompt's features.
+        ``train=True`` returns the training outputs; ``dn_kwargs`` are the CDN
+        queries (dn_labels, dn_valid, dn_refs_unact, self_attn_mask,
+        maskdino_dn_refs, maskdino_dn_valid, maskdino_attn_mask), as
+        hipie_torch.train.step passes them."""
         if task not in ("detection", "grounding"):
             raise ValueError(f"task must be 'detection' or 'grounding', got {task!r}")
         x = self.normalize(images).masked_fill(pad_mask[..., None], 0.0)
         if lang_hidden is None:
             lang_hidden = self.encode_text(input_ids, lang_attn_mask, task)
-        return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task)
+        return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task,
+                         train=train, **dn_kwargs)
 
 
 class InferenceResult(NamedTuple):

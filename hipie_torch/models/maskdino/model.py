@@ -1,4 +1,4 @@
-"""MaskDINO "stuff" branch in shared-encoder mode, inference.
+"""MaskDINO "stuff" branch in shared-encoder mode.
 
 Counterpart of hipie_tpu/models/maskdino/model.py (reference
 maskdino_encoder.py and maskdino_decoder.py). The pixel decoder reuses the
@@ -6,13 +6,17 @@ main encoder's stride-8/16/32 memory maps and adds a stride-64 level from res5,
 one FPN step on res3 and the stride-4 mask features. The decoder takes a
 two-stage top-k over the class embedding, runs the MSDeformAttn decoder layers
 with one shared box MLP, and predicts class embeddings and masks from the last
-layer (the per-layer and initial predictions only feed training losses).
-The own-encoder mode is not ported yet.
+layer. In training (``emit_embeds``) it also returns the initial and per-layer
+predictions, the two-stage ("interm") prediction, and mask EMBEDDINGS in place
+of dense masks (the mask head is linear in the pixel features, so the
+criterion builds masks only where it needs them); seg-DN queries go in front,
+their content the resized pooled language feature (``resizer``, built with
+``train=True``). The own-encoder mode is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -20,6 +24,7 @@ import torch.nn.functional as F
 
 from hipie_torch.config import MaskDINOConfig
 from hipie_torch.layers import MLP, ConvGN, nchw_to_nhwc, nhwc_to_nchw
+from hipie_torch.models.heads import FeatureResizer
 from hipie_torch.models.transformer import DeformableDecoderLayer
 from hipie_torch.utils.misc import inverse_sigmoid, sine_position_embedding_1d
 
@@ -77,9 +82,12 @@ class MaskDINODecoderStack(nn.Module):
 
 
 class MaskDINODecoder(nn.Module):
-    def __init__(self, c: MaskDINOConfig, msda_method: str = "fused"):
+    def __init__(self, c: MaskDINOConfig, msda_method: str = "fused", train: bool = False,
+                 lang_dim: int = 768):
         super().__init__()
         self.cfg = c
+        if train:
+            self.resizer = FeatureResizer(lang_dim, c.hidden_dim)
         self.class_embed = nn.Linear(c.hidden_dim, c.hidden_dim)
         self.mask_embed = MLP(c.hidden_dim, c.hidden_dim, c.mask_dim, 3)
         self._bbox_embed = MLP(c.hidden_dim, c.hidden_dim, 4, 3)
@@ -88,15 +96,30 @@ class MaskDINODecoder(nn.Module):
         self.enc_output_norm = nn.LayerNorm(c.hidden_dim, eps=1e-5)
         self.decoder = MaskDINODecoderStack(c, msda_method)
 
-    def forward(self, level_maps: Sequence[torch.Tensor], mask_features: torch.Tensor):
+    def forward(self, level_maps: Sequence[torch.Tensor], mask_features: torch.Tensor,
+                dn_refs_unact: Optional[torch.Tensor] = None,
+                dn_valid: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None,
+                lang_pool: Optional[torch.Tensor] = None, emit_embeds: bool = False):
         """level_maps [s64, s32, s16, s8] NHWC; mask_features (B, H4, W4, mask_dim).
         Returns {pred_logits (B, Q, hidden) f32, pred_masks (B, Q, H4, W4) f32,
-        pred_boxes (B, Q, 4) f32}."""
+        pred_boxes (B, Q, 4) f32}. With ``emit_embeds`` (training): pred_mask_embed
+        in place of pred_masks, "aux" (classes, mask_embeds, boxes of the initial
+        and every layer but the last), "interm_outputs" and mask_features (f32).
+        dn_refs_unact (B, pad, 4), dn_valid (B, pad), self_attn_mask and
+        lang_pool (B, lang_dim) add the seg-DN queries."""
         c = self.cfg
         b = level_maps[0].shape[0]
         dev = level_maps[0].device
         spatial_shapes = tuple((m.shape[1], m.shape[2]) for m in level_maps)
         src_flat = torch.cat([m.reshape(b, -1, m.shape[-1]) for m in level_maps], 1)
+        mf = mask_features.float()
+
+        def predict(q):
+            d = self.decoder_norm(q)
+            emb = self.mask_embed(d).float()
+            return self.class_embed(d).float(), (
+                emb if emit_embeds else torch.einsum("bqc,bhwc->bqhw", emb, mf))
 
         props = []
         for lvl, (h, w) in enumerate(spatial_shapes):
@@ -117,36 +140,65 @@ class MaskDINODecoder(nn.Module):
         enc_coords_unact = self._bbox_embed(out_memory).float() + proposals_unact
         scores = enc_logits.amax(-1).masked_fill(~prop_valid, torch.finfo(torch.float32).min)
         topk_idx = scores.topk(c.num_queries, dim=1).indices
-        refpoints_unact = enc_coords_unact.gather(1, topk_idx[..., None].expand(-1, -1, 4))
-        output = out_memory.gather(1, topk_idx[..., None].expand(-1, -1, out_memory.shape[-1]))
+        ref_unact = enc_coords_unact.gather(1, topk_idx[..., None].expand(-1, -1, 4))
+        tgt_undetach = out_memory.gather(1, topk_idx[..., None].expand(-1, -1,
+                                                                       out_memory.shape[-1]))
+        refpoints_unact = ref_unact.detach()
+        output = tgt_undetach.detach()
 
+        classes, embeds, boxes = [], [], []
+        if emit_embeds:
+            interm_class, interm_embed = predict(tgt_undetach)
+            interm = {"pred_logits": interm_class, "pred_boxes": ref_unact.sigmoid(),
+                      "pred_mask_embed": interm_embed}
+            if dn_refs_unact is not None:
+                # seg-DN with the label encoding by language: every dn slot's
+                # content is the resized pooled prompt, zero where the slot is unused
+                le = self.resizer(lang_pool)
+                dn_tgt = le[:, None, :].expand(b, dn_refs_unact.shape[1], le.shape[-1])
+                if dn_valid is not None:
+                    dn_tgt = dn_tgt.masked_fill(~dn_valid[..., None], 0.0)
+                output = torch.cat([dn_tgt.to(output.dtype), output], 1)
+                refpoints_unact = torch.cat([dn_refs_unact.float(), refpoints_unact], 1)
+            if c.initial_pred:
+                cls0, emb0 = predict(output)
+                classes.append(cls0)
+                embeds.append(emb0)
+                boxes.append(refpoints_unact.sigmoid())
         reference_points = refpoints_unact.sigmoid()
         for layer in self.decoder.layers:
             ref_input = reference_points[:, :, None, :].expand(-1, -1, N_LEVELS, -1)
             query_sine = sine_position_embedding_1d(reference_points, num_feats=c.hidden_dim // 2)
             query_pos = self.decoder.ref_point_head(query_sine.to(output.dtype))
-            output = layer(output, query_pos, ref_input, src_flat, spatial_shapes, None)
-            delta = self._bbox_embed(output).float()
-            reference_points = (delta + inverse_sigmoid(reference_points)).sigmoid()
-
-        d = self.decoder_norm(output)
-        emb = self.mask_embed(d).float()
-        return {
-            "pred_logits": self.class_embed(d).float(),
-            "pred_masks": torch.einsum("bqc,bhwc->bqhw", emb, mask_features.float()),
-            "pred_boxes": reference_points,
-        }
+            output = layer(output, query_pos, ref_input, src_flat, spatial_shapes, None,
+                           self_attn_mask)
+            new_ref = (self._bbox_embed(output).float() + inverse_sigmoid(reference_points)
+                       ).sigmoid()
+            reference_points = new_ref.detach()
+            if emit_embeds:
+                boxes.append(new_ref)
+                cls_l, emb_l = predict(output)
+                classes.append(cls_l)
+                embeds.append(emb_l)
+        if not emit_embeds:
+            logits, masks = predict(output)
+            return {"pred_logits": logits, "pred_masks": masks, "pred_boxes": reference_points}
+        return {"pred_logits": classes[-1], "pred_mask_embed": embeds[-1],
+                "pred_boxes": boxes[-1],
+                "aux": {"classes": classes[:-1], "mask_embeds": embeds[:-1],
+                        "boxes": boxes[:-1]},
+                "interm_outputs": interm, "mask_features": mf}
 
 
 class MaskDINOHead(nn.Module):
     """Pixel decoder + decoder (reference meta_arch/maskdino_head.py)."""
 
     def __init__(self, c: MaskDINOConfig, res3_channels: int, res5_channels: int,
-                 msda_method: str = "fused"):
+                 msda_method: str = "fused", train: bool = False, lang_dim: int = 768):
         super().__init__()
         self.pixel_decoder = MaskDINOPixelDecoder(c, res3_channels, res5_channels)
-        self.predictor = MaskDINODecoder(c, msda_method)
+        self.predictor = MaskDINODecoder(c, msda_method, train, lang_dim)
 
-    def forward(self, features, shared_memory_levels):
+    def forward(self, features, shared_memory_levels, **train_kwargs):
         mask_features, level_maps = self.pixel_decoder(features, shared_memory_levels)
-        return self.predictor(level_maps, mask_features)
+        return self.predictor(level_maps, mask_features, **train_kwargs)

@@ -1,23 +1,24 @@
-"""Vision-language deformable transformer (DINO variant), inference branch.
+"""Vision-language deformable transformer (DINO variant).
 
 Counterpart of hipie_tpu/models/transformer.py (reference
 deformable_transformer_dino.py): encoder of [VL bi-attention ->] MSDeformAttn
 layers with grid-centre reference points; two-stage top-k proposals over the
-encoder class head; query layout [bg | fg] with learned bg queries; decoupled
-content queries; decoder with iterative box refinement and look-forward-twice.
+encoder class head; query layout [dn | bg | fg] with CDN queries in training and
+learned bg queries; decoupled content queries; decoder with iterative box
+refinement and look-forward-twice, the refinement chain detached between layers.
 
 Module names follow the reference's state_dict (encoder.layers.N,
 encoder.vl_layers.N.b_attn, decoder.layers.N, decoder.ref_point_head). The box
 heads and the encoder class head live in the detector (detr.bbox_embed,
 detr.class_embed) as in the reference, and are passed in. ``msda_method``
-("fused" or "flat4") goes to every MSDeformAttn. Not ported yet: CDN queries,
+("fused" or "flat4") goes to every MSDeformAttn. Not ported yet:
 language-derived bg queries, the in-encoder BERT layers and the non-decoupled
 content mode.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -76,9 +77,10 @@ class DeformableDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask):
+    def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
+                self_attn_mask=None):
         q = tgt + query_pos
-        tgt = self.norm2(tgt + self.self_attn(q, q, tgt))
+        tgt = self.norm2(tgt + self.self_attn(q, q, tgt, attn_mask=self_attn_mask))
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
         tgt = self.norm1(tgt + tgt2)
@@ -149,7 +151,7 @@ def two_stage_proposals(spatial_shapes: Shapes, valid_ratios, mask_flat):
 
 
 class VLDeformableTransformer(nn.Module):
-    """Encoder + two-stage selection + decoder, inference branch."""
+    """Encoder + two-stage selection + decoder."""
 
     def __init__(self, c: TransformerConfig, lang_dim: int = 768, msda_method: str = "fused"):
         super().__init__()
@@ -173,11 +175,16 @@ class VLDeformableTransformer(nn.Module):
     def forward(self, srcs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                 pos_embeds: Sequence[torch.Tensor], lang_hidden, lang_masks,
                 enc_class_head: nn.Module, enc_bbox_head: nn.Module,
-                bbox_heads: Sequence[nn.Module], task: str = "detection"
-                ) -> Dict[str, torch.Tensor]:
+                bbox_heads: Sequence[nn.Module], task: str = "detection",
+                dn_tgt: Optional[torch.Tensor] = None,
+                dn_refs_unact: Optional[torch.Tensor] = None,
+                self_attn_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """srcs/pos_embeds per level (B, H, W, C), masks (B, H, W) True = pad;
         lang_hidden (B, L, lang_dim), lang_masks (B, L) 1 = valid; task
-        "detection" or "grounding"."""
+        "detection" or "grounding". Training passes the CDN queries: dn_tgt
+        (B, pad, C) content, dn_refs_unact (B, pad, 4) pre-sigmoid boxes, put in
+        front of the queries, and self_attn_mask (Q_total, Q_total) True =
+        blocked."""
         c = self.cfg
         b = srcs[0].shape[0]
         dtype = self.level_embed.dtype
@@ -210,14 +217,17 @@ class VLDeformableTransformer(nn.Module):
         scores = enc_class[..., 0].masked_fill(~prop_valid, torch.finfo(torch.float32).min)
         topk_idx = scores.topk(c.two_stage_num_proposals, dim=1).indices
         topk_coords_unact = enc_coord_unact.gather(1, topk_idx[..., None].expand(-1, -1, 4))
-        fg_refs = topk_coords_unact.sigmoid()
+        fg_refs = topk_coords_unact.detach().sigmoid()
 
-        # ---- queries [bg | fg] -------------------------------------------
+        # ---- queries [dn | bg | fg] --------------------------------------
         tgt = self.tgt_embed.weight[None].expand(b, -1, -1)
         refs = fg_refs
         if c.num_bg_queries > 0:
             tgt = torch.cat([self.tgt_embed_bg.weight[None].expand(b, -1, -1), tgt], 1)
             refs = torch.cat([self.bg_query_refs.weight.float()[None].expand(b, -1, -1), refs], 1)
+        if dn_tgt is not None:
+            tgt = torch.cat([dn_tgt.to(tgt.dtype), tgt], 1)
+            refs = torch.cat([dn_refs_unact.float().sigmoid(), refs], 1)
         # decoupled content: grounding without still_tgt_for_both puts the pooled
         # language feature into every query slot; detection keeps the embeddings
         if not c.still_tgt_for_both and task == "grounding":
@@ -225,27 +235,35 @@ class VLDeformableTransformer(nn.Module):
         init_reference = refs
 
         # ---- decoder --------------------------------------------------------
-        # Each layer refines its input boxes with the shared-index box head. At
-        # inference a layer's output box is its refined reference (look-forward-
-        # twice differs only in gradients), so outputs_coord == inter_references.
+        # Each layer refines its input boxes with the shared-index box head; the
+        # next layer's reference is the refined box detached. A layer's output
+        # box applies its delta to the previous layer's undetached refined box
+        # (look-forward-twice), which differs from its refined reference only in
+        # gradients.
         vr2 = torch.cat([valid_ratios, valid_ratios], -1)[:, None]
-        hs_list, refs_list = [], []
+        hs_list, refs_list, coords_list = [], [], []
         output = tgt
         reference_points = refs
         for lid, layer in enumerate(self.decoder.layers):
             ref_input = reference_points[:, :, None, :] * vr2
             query_sine = sine_position_embedding_1d(ref_input[:, :, 0, :], num_feats=c.d_model // 2)
             query_pos = self.decoder.ref_point_head(query_sine.to(dtype))
-            output = layer(output, query_pos, ref_input, memory, spatial_shapes, mask_flat)
+            output = layer(output, query_pos, ref_input, memory, spatial_shapes, mask_flat,
+                           self_attn_mask)
             delta = bbox_heads[lid](output).float()
-            reference_points = (delta + inverse_sigmoid(reference_points)).sigmoid()
+            new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
+            reference_points = new_ref.detach()
             hs_list.append(output)
-            refs_list.append(reference_points)
+            refs_list.append(new_ref if c.look_forward_twice else reference_points)
+            if lid == 0 or not torch.is_grad_enabled():
+                coords_list.append(new_ref)
+            else:
+                coords_list.append((delta + inverse_sigmoid(refs_list[lid - 1])).sigmoid())
         inter_references = torch.stack(refs_list)
 
         return {
             "hs": torch.stack(hs_list),
-            "outputs_coord": inter_references,
+            "outputs_coord": torch.stack(coords_list),
             "inter_references": inter_references,
             "init_reference": init_reference,
             "memory": memory,

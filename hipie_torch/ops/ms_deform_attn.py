@@ -1,13 +1,19 @@
-"""Multi-scale deformable attention (kernel K-B, and the ``flat4`` path on K-C).
+"""Multi-scale deformable attention: forward kernel K-B (and the ``flat4`` path
+on K-C) and backward kernel K-D.
 
-Counterpart of hipie_tpu/ops/ms_deform_attn.py::ms_deform_attn_jnp with the
-semantics of the reference CUDA op: bilinear sampling with
-``align_corners=False`` and zero padding, weighted over levels and points.
-``ms_deform_attn`` takes a CPU tensor to the plain version and a CUDA tensor to
-the hand-written kernel in ``hipie_torch/csrc/ms_deform_attn.cu``; there is no
-fallback between the two. ``method="flat4"`` instead runs the JAX package's
-``flat4`` formulation, whose segment reduce is kernel K-C
-(``hipie_torch/ops/msda_reduce.py``).
+Counterpart of hipie_tpu/ops/ms_deform_attn.py::ms_deform_attn_jnp and, for
+training, ``ms_deform_attn_train`` with its hand-written backward
+``_msda_train_bwd``, with the semantics of the reference CUDA op: bilinear
+sampling with ``align_corners=False`` and zero padding, weighted over levels and
+points. ``ms_deform_attn`` takes a CPU tensor to the plain version (whose
+gradient is ``F.grid_sample``'s autograd) and a CUDA tensor to the hand-written
+kernels: the forward in ``hipie_torch/csrc/ms_deform_attn.cu`` and, where a
+gradient is wanted, the backward in ``hipie_torch/csrc/ms_deform_attn_bwd.cu``
+behind a ``torch.autograd.Function``; there is no fallback between the two.
+``method="flat4"`` instead runs the JAX package's ``flat4`` formulation, whose
+segment reduce is kernel K-C (``hipie_torch/ops/msda_reduce.py``); in training
+its backward is K-D too, as JAX's ``ms_deform_attn_train`` gives every method
+one backward.
 """
 
 from __future__ import annotations
@@ -179,18 +185,43 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
 
     ``method`` "fused" runs kernel K-B (the plain ``grid_sample`` version on a
     CPU tensor); "flat4" runs ``ms_deform_attn_flat4``, whose reduce is kernel
-    K-C on a CUDA tensor.
+    K-C on a CUDA tensor. On a CUDA tensor with autograd recording and an input
+    that requires a gradient, the call goes through ``MSDeformAttnFunction``,
+    whose backward is kernel K-D; otherwise it does no more than the forward.
     """
     spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
-    if method == "flat4":
-        return ms_deform_attn_flat4(value, spatial_shapes, sampling_locations, attention_weights)
-    if method != "fused":
+    if method not in MSDA_METHODS:
         raise ValueError(f"ms_deform_attn: method must be one of {MSDA_METHODS}, got {method!r}")
     if value.device.type == "cpu":
+        if method == "flat4":
+            return ms_deform_attn_flat4(value, spatial_shapes, sampling_locations,
+                                        attention_weights)
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
                                     attention_weights)
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn: unsupported device {value.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return MSDeformAttnFunction.apply(value, sampling_locations, attention_weights,
+                                          spatial_shapes, method)
+    return _forward(value, spatial_shapes, sampling_locations, attention_weights, method)
+
+
+def _forward(value, spatial_shapes: Shapes, sampling_locations, attention_weights,
+             method: str) -> torch.Tensor:
+    """K-B (fused) or the flat4 formulation on K-C, on CUDA inputs."""
+    if method == "flat4":
+        return ms_deform_attn_flat4(value, spatial_shapes, sampling_locations, attention_weights)
+    _check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, m, d = value.shape
+    q = sampling_locations.shape[1]
+    plan = kernel_plan(d, value.element_size(), b * q * m, value.data_ptr() & -value.data_ptr())
+    return _launch(value, spatial_shapes, sampling_locations, attention_weights, plan)
+
+
+def _check_inputs(value, spatial_shapes: Shapes, sampling_locations, attention_weights):
+    """What K-B and K-D take: bf16 or f32 contiguous values with head dim <= 128,
+    f32 contiguous locations and weights of matching shapes, on one device."""
     b, s, m, d = value.shape
     q, n_levels, p = sampling_locations.shape[1], len(spatial_shapes), sampling_locations.shape[4]
     if value.dtype not in (torch.bfloat16, torch.float32):
@@ -209,8 +240,85 @@ def ms_deform_attn(value, spatial_shapes: Sequence[Tuple[int, int]],
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"ms_deform_attn: {name} must be contiguous {shape}, "
                              f"got {tuple(t.shape)}")
-    plan = kernel_plan(d, value.element_size(), b * q * m, value.data_ptr() & -value.data_ptr())
-    return _launch(value, spatial_shapes, sampling_locations, attention_weights, plan)
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """MSDA with K-B (or flat4 on K-C) forward and K-D backward, on CUDA tensors.
+
+    Saves the value, locations and weights; the backward gives the gradients of
+    all three (the value's in its dtype, cast once from K-D's f32 buffer)."""
+
+    @staticmethod
+    def forward(ctx, value, sampling_locations, attention_weights, spatial_shapes, method):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return _forward(value, spatial_shapes, sampling_locations, attention_weights, method)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, loc, attw = ctx.saved_tensors
+        gv, gl, gw = ms_deform_attn_backward(value, ctx.spatial_shapes, loc, attw, grad_out)
+        return gv, gl, gw, None, None
+
+
+def ms_deform_attn_backward_plain(value, spatial_shapes: Shapes, sampling_locations,
+                                  attention_weights, grad_out):
+    """The gradients of ``ms_deform_attn_plain`` (``F.grid_sample``'s autograd)
+    for the output cotangent ``grad_out`` (B, Q, M*D): (grad value in the
+    value's dtype, grad locations f32, grad weights f32). K-D's reference."""
+    with torch.enable_grad():
+        v = value.detach().requires_grad_(True)
+        loc = sampling_locations.detach().float().requires_grad_(True)
+        w = attention_weights.detach().float().requires_grad_(True)
+        out = ms_deform_attn_plain(v, spatial_shapes, loc, w)
+        return torch.autograd.grad(out, (v, loc, w), grad_out.to(out.dtype))
+
+
+def backward_plan(d: int, itemsize: int, align: int) -> Tuple[int, int]:
+    """K-D's (channels a thread owns, threads per pair) for head dim ``d`` of
+    ``itemsize``-byte values whose rows and gradient rows are ``align``-byte
+    aligned: 4 channels where the row allows it, else 1; as many threads as
+    the row has such vectors, a power of two up to 32 (a thread then holds up
+    to 4 vectors)."""
+    vc = 4 if d % 4 == 0 and align % (4 * itemsize) == 0 else 1
+    vecs = d // vc
+    return vc, min(32, 1 << (vecs - 1).bit_length())
+
+
+def ms_deform_attn_backward(value, spatial_shapes: Shapes, sampling_locations,
+                            attention_weights, grad_out):
+    """Kernel K-D: the gradients of MSDA with respect to the value, the
+    locations and the weights, for the output cotangent ``grad_out`` (B, Q, M*D),
+    on CUDA tensors. Returns (grad value in the value's dtype, grad locations
+    f32, grad weights f32)."""
+    from hipie_torch.kernels import build
+
+    if value.device.type != "cuda":
+        raise ValueError(f"ms_deform_attn_backward: K-D runs on CUDA tensors, got {value.device}")
+    _check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
+    b, s, m, d = value.shape
+    q, n_levels, p = sampling_locations.shape[1], len(spatial_shapes), sampling_locations.shape[4]
+    gout = grad_out.to(value.dtype).contiguous()
+    if tuple(gout.shape) != (b, q, m * d) or gout.device != value.device:
+        raise ValueError(f"ms_deform_attn_backward: grad_out must be ({b}, {q}, {m * d}) on "
+                         f"{value.device}, got {tuple(gout.shape)} on {gout.device}")
+    align = value.data_ptr() & -value.data_ptr()
+    align = min(align, gout.data_ptr() & -gout.data_ptr())
+    vc, tpp = backward_plan(d, value.element_size(), align)
+    lib = build.load()
+    shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
+    grad_value = torch.zeros((b, s, m, d), dtype=torch.float32, device=value.device)
+    grad_loc = torch.empty_like(sampling_locations)
+    grad_attw = torch.empty_like(attention_weights)
+    err = lib.hipie_ms_deform_attn_bwd(
+        value.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
+        sampling_locations.data_ptr(), attention_weights.data_ptr(), gout.data_ptr(),
+        grad_value.data_ptr(), grad_loc.data_ptr(), grad_attw.data_ptr(),
+        b, s, m, d, q, n_levels, p, int(value.dtype == torch.bfloat16), vc, tpp,
+        torch.cuda.current_stream(value.device).cuda_stream)
+    build.check(err, "ms_deform_attn_backward")
+    kernels.LAUNCHES["ms_deform_attn_bwd"] += 1
+    return grad_value.to(value.dtype), grad_loc, grad_attw
 
 
 def _launch(value, spatial_shapes: Shapes, sampling_locations, attention_weights,

@@ -1,7 +1,8 @@
 """flax-params -> PyTorch-style state_dict export (inverse of hipie_converter).
 
-Counterpart of hipie_tpu/utils/export.py (numpy only, the same names), kept in
-the port so that ``hipie_torch.utils.weights.load_from_jax`` turns the JAX
+Counterpart of hipie_tpu/utils/export.py (numpy only, the same names; it also
+exports the MaskDINO decoder's seg-DN ``resizer`` that the JAX package's
+training init creates), kept in the port so that ``hipie_torch.utils.weights.load_from_jax`` turns the JAX
 package's parameters, as numpy arrays, into the port's without importing it.
 
 Two purposes:
@@ -409,6 +410,9 @@ def export_hipie_checkpoint(params: Dict[str, Any], cfg) -> SD:
         inv_linear(pr["enc_output"], f"{pred}.enc_output", sd)
         inv_norm(pr["enc_output_norm"], f"{pred}.enc_output_norm", sd)
         inv_mlp(pr["ref_point_head"], f"{pred}.decoder.ref_point_head", sd)
+        if "resizer" in pr:           # seg-DN label encoding, built by training init
+            inv_linear(pr["resizer"]["fc"], f"{pred}.resizer.fc", sd)
+            inv_norm(pr["resizer"]["layer_norm"], f"{pred}.resizer.layer_norm", sd)
         for i in range(mdc.dec_layers):
             if f"dec_layers_{i}" in pr:
                 inv_dec_layer(pr[f"dec_layers_{i}"],

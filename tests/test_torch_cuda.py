@@ -22,6 +22,12 @@ Inputs are made with numpy from a seed. Tolerances:
     sample dropped or counted twice (several %) would exceed.
   * K-C: both read the same values and sum in f32: summation order only, 1e-5
     (relative and absolute) in both dtypes.
+  * K-D (``chip_smoke.check_msda_bwd``, the limits chip_smoke.py holds it
+    to) against the plain version's autograd: f32 summation order (K-D's
+    atomics in a changing order) only, 1e-5 relative in norm; in bf16 each side
+    rounds its value gradient once (4e-3 in norm) and computes the f32 location
+    and weight gradients from the same values (1e-4). Location gradients are
+    compared off the pixel lattice, where bilinear sampling has one derivative.
   * ``flat4`` against K-B: in f32 summation order only (1e-5). In bf16 flat4
     rounds each corner weight to bf16 (2^-9 relative), and the weights of a
     (query, head) sum to at most 1, which bounds that part by 2^-9 max|value|;
@@ -32,11 +38,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_msda, local_locations
+from chip_smoke import check_msda, check_msda_bwd, local_locations
 from hipie_torch import kernels
 from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAIRS, TABLE_CHUNK,
-                                            _launch, kernel_constants, kernel_plan,
-                                            ms_deform_attn, ms_deform_attn_plain)
+                                            _launch, backward_plan, kernel_constants,
+                                            kernel_plan, ms_deform_attn,
+                                            ms_deform_attn_backward,
+                                            ms_deform_attn_backward_plain, ms_deform_attn_plain)
 from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
 from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
 
@@ -187,6 +195,78 @@ def test_ms_deform_attn_kernel_rejects_f16(dev):
     value, loc, w = _msda_inputs(1, 5, 2, 8, ((4, 4),), 2, 0, dev, torch.float16)
     with pytest.raises(ValueError):
         ms_deform_attn(value, ((4, 4),), loc, w)
+
+
+def _gout(b, q, m, d, seed, dev, dtype):
+    r = np.random.RandomState(seed)
+    return torch.from_numpy(r.randn(b, q, m * d).astype(np.float32)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q,m,d,shapes,p,locations", [
+    (2, 7, 2, 8, ((6, 4), (3, 2)), 3, "uniform"),       # L*P = 6
+    (1, 45, 2, 32, ((13, 19), (7, 10)), 8, "edges"),     # L*P = 16 on edges and outside
+    (1, 33, 3, 32, ((9, 7),) * 4, 8, "uniform"),         # L*P = 32
+    (2, 1110, 8, 32, ENC_SHAPES, 4, "uniform"),          # the training decoder
+    (2, 500, 8, 32, ENC_SHAPES[::-1], 4, "uniform"),     # the training MaskDINO decoder
+    (2, ENC_S, 8, 32, ENC_SHAPES, 4, "local"),           # the training encoder
+    (1, R50_S, 8, 32, R50_SHAPES, 4, "uniform"),
+    (2, 300, 8, 4, R50_SHAPES, 4, "uniform"),            # D = 4: one vector a row
+    (1, 50, 2, 3, ((5, 7),), 2, "uniform"),              # odd widths: one channel a thread
+    (1, 50, 2, 5, ((5, 7),), 2, "edges"),
+    (1, 40, 2, 33, ((6, 5), (3, 3)), 3, "uniform"),      # 33 channels: 2 vectors on thread 0
+    (1, 40, 2, 127, ((6, 5), (3, 3)), 2, "uniform"),     # 127: 4 passes of 32 threads
+    (1, 40, 2, 128, ((6, 5),), 4, "uniform"),            # 32 threads of 4 channels
+])
+def test_ms_deform_attn_backward_matches_plain_autograd(dev, dtype, b, q, m, d, shapes, p,
+                                                        locations):
+    value, loc, w = _msda_inputs(b, q, m, d, shapes, p, q + d + 1, dev, dtype, locations)
+    gout = _gout(b, q, m, d, q + d, dev, dtype)
+    before = kernels.LAUNCHES["ms_deform_attn_bwd"]
+    got = ms_deform_attn_backward(value, shapes, loc, w, gout)
+    assert kernels.LAUNCHES["ms_deform_attn_bwd"] == before + 1
+    want = ms_deform_attn_backward_plain(value, shapes, loc, w, gout)
+    torch.cuda.synchronize()
+    check_msda_bwd("ms_deform_attn_bwd", got, want, loc, shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_backward_unaligned_rows(dev, dtype):
+    """A value view one element into its storage takes one channel a thread."""
+    shapes = ((9, 11), (5, 6))
+    value, loc, w = _msda_inputs(1, 70, 4, 32, shapes, 4, 3, dev, dtype)
+    flat = torch.empty(value.numel() + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(value.shape)
+    shifted.copy_(value)
+    assert backward_plan(32, value.element_size(), shifted.data_ptr() & -shifted.data_ptr())[0] == 1
+    gout = _gout(1, 70, 4, 32, 4, dev, dtype)
+    got = ms_deform_attn_backward(shifted, shapes, loc, w, gout)
+    torch.cuda.synchronize()
+    check_msda_bwd("ms_deform_attn_bwd", got,
+                   ms_deform_attn_backward_plain(value, shapes, loc, w, gout), loc, shapes)
+
+
+@pytest.mark.parametrize("method", ["fused", "flat4"])
+def test_ms_deform_attn_autograd_launches_kd(dev, method):
+    """With a gradient wanted, the forward (K-B, or flat4 on K-C) and K-D run
+    once each, and the gradients are K-D's; under no_grad only the forward runs."""
+    shapes = R50_SHAPES
+    value, loc, w = _msda_inputs(2, 300, 8, 32, shapes, 4, 9, dev, torch.bfloat16)
+    gout = _gout(2, 300, 8, 32, 10, dev, torch.bfloat16)
+    fwd = "ms_deform_attn" if method == "fused" else "msda_reduce"
+    with torch.no_grad():
+        before = dict(kernels.LAUNCHES)
+        ms_deform_attn(value, shapes, loc, w, method=method)
+        assert kernels.LAUNCHES[fwd] == before[fwd] + 1
+        assert kernels.LAUNCHES["ms_deform_attn_bwd"] == before["ms_deform_attn_bwd"]
+    v, l, a = (t.clone().requires_grad_(True) for t in (value, loc, w))
+    before = dict(kernels.LAUNCHES)
+    ms_deform_attn(v, shapes, l, a, method=method).backward(gout)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[fwd] == before[fwd] + 1
+    assert kernels.LAUNCHES["ms_deform_attn_bwd"] == before["ms_deform_attn_bwd"] + 1
+    check_msda_bwd("autograd", (v.grad, l.grad, a.grad),
+                   ms_deform_attn_backward_plain(value, shapes, loc, w, gout), loc, shapes)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,7 @@
 """The port's copies of the JAX package's host modules give what the originals give.
 
 hipie_torch keeps its own config, presets, tokenizer, prompt builders, label
-spaces, ``pad_to_bucket`` and checkpoint export, so that it imports nothing of
+spaces, ``pad_to_bucket``, checkpoint export and event storage, so that it imports nothing of
 hipie_tpu. Each check here runs a copy and its original on the same inputs and
 asks for equality: exact, since both are the same host code over numpy.
 """
@@ -194,3 +194,26 @@ def test_export_is_the_same(key, monkeypatch):
     for k in want:
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_event_storage_is_the_same(tmp_path, capsys):
+    """The port's EventStorage is the JAX package's, line for line, and the same
+    calls write the same metrics.json and console lines (the profiler differs
+    by design: torch.profiler in place of jax.profiler)."""
+    import inspect
+
+    import hipie_tpu.utils.events as jev
+    import hipie_torch.utils.events as tev
+
+    assert inspect.getsource(tev.EventStorage) == inspect.getsource(jev.EventStorage)
+    out = []
+    for mod in (jev, tev):
+        d = tmp_path / mod.__name__
+        st = mod.EventStorage(str(d), window=3)
+        for i in range(5):
+            st.put_scalars(loss_ce=1.0 / (i + 1), total_loss=2.0 + i, data_time=0.0)
+            st.iter += 1
+            st.write_json()
+            st.log_console(lr=1e-4)
+        out.append(((d / "metrics.json").read_text(), capsys.readouterr().out))
+    assert out[0] == out[1] and out[0][0].count("\n") == 5

@@ -1,6 +1,6 @@
 """The port stands alone: it runs without JAX and without the JAX package,
-imports neither anywhere, serves on the card by default, and chip_smoke.py
-refuses to run without a card.
+imports neither anywhere, serves and trains on the card by default, and
+chip_smoke.py refuses to run without a card.
 
 The runs are in fresh interpreters, so nothing this test process imported
 leaks in; there ``sys.modules["hipie_tpu"] = None`` makes any import of the JAX
@@ -82,6 +82,40 @@ assert not [m for m in sys.modules if m.startswith(("jax", "flax", "cv2"))
 print("NOJAX_OK")
 """
 
+# Two training steps on the tiny config through the port's own step, optimizer,
+# criterion, matchers, CDN and Trainer, on the CPU.
+TRAIN = BLOCK_JAX_PACKAGE + r"""
+import dataclasses, tempfile
+import numpy as np
+import torch
+from hipie_torch.config import apply_overrides, tiny_test_config
+from hipie_torch.losses.criterion import Targets
+from hipie_torch.train.step import TrainBatch, create_train_state, make_train_step
+from hipie_torch.train.trainer import Trainer
+
+cfg = apply_overrides(tiny_test_config(), {"model.backbone.resnet_depth": 18})
+cfg = dataclasses.replace(cfg, output_dir=tempfile.mkdtemp())
+state = create_train_state(cfg, seed=0, device="cpu")
+b, n, L = 1, 4, cfg.model.text.max_query_len
+masks = torch.zeros(b, n, 24, 24)
+masks[0, 0, 3:13, 5:18] = 1.0
+masks[0, 1, 12:24, 0:9] = 1.0
+t = Targets(torch.tensor([[3, 7, 0, 0]]), torch.tensor([[[0.47, 0.34, 0.56, 0.44],
+                                                         [0.19, 0.75, 0.38, 0.5]] + [[0.5] * 4] * 2]),
+            masks, torch.eye(n, L)[None], torch.tensor([[True, False, True, True]]),
+            torch.tensor([[True, True, False, False]]))
+batch = TrainBatch(torch.randint(0, 256, (b, 96, 96, 3)), torch.zeros(b, 96, 96, dtype=torch.bool),
+                   torch.arange(L)[None] % 16, torch.ones(b, L, dtype=torch.long),
+                   torch.tensor([[96, 96]]), t)
+trainer = Trainer(cfg, state, make_train_step(cfg, state, device="cpu"), iter([batch] * 2),
+                  device="cpu")
+state = trainer.train(max_iter=2)
+assert state.step == 2 and all(np.isfinite(h["total_loss"]) for h in trainer.history)
+assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
+            or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
+print("NOJAX_OK")
+"""
+
 
 def _env():
     env = dict(os.environ)
@@ -102,6 +136,10 @@ def test_tiny_slice_runs_without_jax():
 
 def test_predictor_runs_without_jax():
     _run_without_jax(PREDICTOR)
+
+
+def test_training_runs_without_jax():
+    _run_without_jax(TRAIN)
 
 
 def _port_sources():
@@ -162,6 +200,30 @@ def test_predictor_defaults_to_the_card():
         HIPIEPredictor(cfg, model, tok)
     pred = HIPIEPredictor(cfg, model, tok, device="cpu")
     assert pred.device.type == "cpu" and model.weight.device.type == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["create_train_state", "make_train_step", "Trainer"])
+def test_training_defaults_to_the_card(entry):
+    """The training entry points take device="cuda" by default and, without a
+    card, raise instead of training on the CPU."""
+    import inspect
+
+    import torch
+    from hipie_torch.config import tiny_test_config
+    from hipie_torch.train import step, trainer
+
+    fn = getattr(trainer if entry == "Trainer" else step, entry)
+    assert torch.device(inspect.signature(fn).parameters["device"].default).type == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card refusal")
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "create_train_state":
+            fn(cfg)
+        elif entry == "make_train_step":
+            fn(cfg, None)
+        else:
+            fn(cfg, None, None, iter([]))
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
