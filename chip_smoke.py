@@ -16,7 +16,12 @@ prints no result line):
     (operations over the peak rate of their type, or bytes over the HBM rate,
     whichever is larger) and, where one PyTorch call computes the same
     function, that call's time (SDPA with the rel-pos bias prebuilt as a bf16
-    mask for K-A, einsum for K-C; the port never calls them); and the
+    mask for K-A, SDPA's backward with that mask requiring grad plus the two
+    reductions of its gradient for K-E, einsum for K-C; the port never calls
+    them); K-A at VIT_CASES (a request's shape and the ViT-H train step's),
+    with and without its logsumexp output (against torch.logsumexp); K-E (the backward
+    of K-A) at VIT_BWD_CASES against vit_attention_bwd_plain
+    (check_vit_attention_bwd); and the
     ``flat4`` MSDA formulation (K-C) against the fused one (K-B) at the R50
     encoder shape. K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform
     and local locations), decoders and MaskDINO decoders in bf16, the R50 ones
@@ -56,8 +61,17 @@ prints no result line):
     parameters moved, the lr equal to the schedule, and K-B and K-D launched
     exactly 21 times each a step; it prints the ms per step, peak memory and
     matcher host syncs per step.
-Every shape at which phases 5 to 7 launched K-B, and every shape at which
-phase 7 launched K-D, must be one that phase 3 checked.
+ 8. ViT-H train: the same for vit_huge_coco_panoptic() (full width and depth,
+    drop path, activation checkpointing of the ViT blocks and the encoder and
+    decoder layers), VIT_TRAIN_STEPS steps: each kernel's launches a step
+    exact as train_launches counts them from the config (K-A 48 with remat's
+    recomputation, K-E 24, K-B 33, K-D 21), and every global block whose
+    attention branch the last step kept has nonzero qkv and rel-pos gradients.
+    K-A's and K-E's counts are also held to the 24 global blocks ViT-H has,
+    counted without the model's dispatch predicate.
+Every shape at which phases 5 and 8 launched K-A, every shape at which phases
+5 to 8 launched K-B, every shape at which phases 7 and 8 launched K-D, and
+every shape at which phase 8 launched K-E must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -132,6 +146,27 @@ MSDA_BWD_CASES = (
     ("train_decoder_f32", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.float32, "uniform"),
     ("train_maskdino_f32", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.float32, "uniform"),
 )
+# K-A's cases (name, BH, Kh, Kw, hd), bf16: a ViT-H request (one image: BH =
+# 16, N = 4096, hd 80) and the ViT-H training step (batch 2: BH = 32), each
+# with and without the logsumexp. main() fails if the serve or a train phase
+# launches K-A at a shape not here.
+VIT_CASES = (
+    ("serve", 16, 64, 64, 80),
+    ("train", 32, 64, 64, 80),
+)
+# K-E's cases (name, BH, Kh, Kw, hd), bf16: the ViT-H training shape (batch 2:
+# BH = 32, N = 4096, hd 80, the Kw = 64 path), one image, ViT-L's head dim 64,
+# Kh = Kw = 40 (the per-element bias path), a partial last 64-row tile (N =
+# 400) and Kh != Kw. main() fails if the ViT-H train phase launches K-E at a
+# shape not here.
+VIT_BWD_CASES = (
+    ("train", 32, 64, 64, 80),
+    ("one_image", 16, 64, 64, 80),
+    ("vit_large", 32, 64, 64, 64),
+    ("kh40", 32, 40, 40, 80),
+    ("partial_tile", 32, 20, 20, 80),
+    ("kh_ne_kw", 32, 32, 48, 80),
+)
 # Published H100 SXM peaks (NVIDIA's data sheet), for each kernel's bound.
 PEAK_BF16_TENSOR = 989e12        # FLOP/s, dense bf16 on the tensor cores
 PEAK_F32 = 67e12                 # FLOP/s, f32 outside the tensor cores
@@ -204,6 +239,41 @@ def check_attention(what, got, want):
         raise AssertionError(f"{what} disagrees with the plain version: max abs err {err} "
                              f"(tol {tol}), relative norm err {rel} (tol 1e-2)")
     return err, tol, rel
+
+
+def rel_norm_err(got, want) -> float:
+    g, w = got.float(), want.float()
+    return ((g - w).norm() / w.norm().clamp_min(1e-30)).item()
+
+
+def check_vit_attention_bwd(what, got, want):
+    """Relative norm errors of K-E's (dq, dk, dv, d rel_h, d rel_w) against
+    vit_attention_bwd_plain on the same bf16 inputs, lse and cotangent; raises
+    past a limit. Both compute in f32 and round each gradient to bf16 once.
+    dq and dk: the kernel also rounds dS to bf16 (2^-9 relative a value) for
+    its tensor-core products where the plain version keeps f32 (~2.6e-3 in
+    norm at the ViT-H shape): 1e-2, which a dropped 64-key tile (~12%)
+    exceeds. dv, d rel_h, d rel_w: both take the same bf16 P or f32 dS and
+    differ in summation order, the exp2 approximation and the output's one
+    rounding (at most 2^-9 a value): 2e-3."""
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv", "d rel_h", "d rel_w"), got, want):
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"{what} {name}: {g.dtype} {tuple(g.shape)} against "
+                                 f"{w.dtype} {tuple(w.shape)}, or not finite")
+        g, w = g.float(), w.float()
+        rel = rel_norm_err(g, w)
+        tol = 1e-2 if name in ("dq", "dk") else 2e-3
+        if not rel <= tol:
+            raise AssertionError(f"{what} {name} disagrees with the plain version: relative "
+                                 f"norm err {rel} (tol {tol})")
+        errs.append((rel, tol, (g - w).abs().max().item()))
+    return errs
+
+
+def vit_shape(q, rel_h, rel_w):
+    """K-A's and K-E's shape of a call: (BH, N, hd, Kh, Kw, dtype)."""
+    return (*q.shape, rel_h.shape[-1], rel_w.shape[-1], str(q.dtype)[6:])
 
 
 def check_msda(what, got, want):
@@ -301,51 +371,13 @@ def phase_kernels(dev, card):
     bound and the time of the one PyTorch call that computes the same function
     (timed here only, never called by the port)."""
     from hipie_torch import kernels
-    from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
 
     rng = np.random.RandomState(SEED)
     records = []
-
-    # K-A: ViT-H global block, 16 heads x 4096 tokens x head dim 80, 64 x 64 grid.
-    bh, kh, kw, hd = 16, 64, 64, 80
-    n = kh * kw
-    mk = lambda *s, sc=1.0: torch.from_numpy(sc * rng.randn(*s).astype(np.float32)).to(
-        dev, torch.bfloat16)
-    q, k, v = mk(bh, n, hd), mk(bh, n, hd), mk(bh, n, hd)
-    rh, rw = mk(bh, n, kh, sc=0.3), mk(bh, n, kw, sc=0.3)
-    scale = hd ** -0.5
-    got = vit_global_attention(q, k, v, rh, rw, scale)
-    want = vit_attention_plain(q, k, v, rh, rw, scale)
-    torch.cuda.synchronize()
-    err, tol, rel = check_attention("vit_attention", got, want)
-    ms = cuda_time_ms(lambda: vit_global_attention(q, k, v, rh, rw, scale), 20)
-    plain_ms = cuda_time_ms(lambda: vit_attention_plain(q, k, v, rh, rw, scale), 5)
-    # library yardstick: SDPA with the bias materialised once as a bf16 mask
-    make_bias = lambda: (rh[:, :, :, None] + rw[:, :, None, :]).reshape(1, bh, n, n)
-    bias_ms = cuda_time_ms(make_bias, 5)
-    bias = make_bias()
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q.view(1, bh, n, hd), k.view(1, bh, n, hd), v.view(1, bh, n, hd), attn_mask=bias,
-        scale=scale)
-    lib_err, _, lib_rel = check_attention("the SDPA yardstick", sdpa()[0], want)
-    library_ms = cuda_time_ms(sdpa, 10)
-    b = bound(4.0 * bh * n * n * hd, nbytes(q, k, v, rh, rw, got), PEAK_BF16_TENSOR,
-              "tensor cores")
-    log(f"[kernels] vit_attention BH={bh} N={n} hd={hd} Kh=Kw={kh} bf16: max abs err {err:.3e} "
-        f"(tol {tol:.3e}; relative norm err {rel:.3e}, tol 1e-2), kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.3f} ms, SDPA with a prebuilt bf16 mask {library_ms:.4f} ms (max abs err "
-        f"{lib_err:.3e}, relative norm err {lib_rel:.3e}), mask build "
-        f"{bias_ms:.4f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_unit']}: "
-        f"{b['bound_flops'] / 1e9:.1f} GFLOP, {b['bound_bytes'] / 1e6:.1f} MB), kernel at "
-        f"{100 * b['bound_ms'] / ms:.1f}% of the bound, {library_ms / ms:.2f}x faster than SDPA; "
-        f"card {card}")
-    records.append({"name": "vit_attention", "route": "cuda",
-                    "source": "hipie_torch/csrc/vit_attention.cu",
-                    "replaces": "hipie_tpu/ops/pallas/vit_attention_kernel.py:148",
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b,
-                    "library_ms": library_ms, "library_call": "scaled_dot_product_attention",
-                    "library_bias_build_ms": bias_ms})
-    del q, k, v, rh, rw, got, want, bias
+    ka_record, vit_cases = _check_vit_attention(dev, card, rng)
+    records.append(ka_record)
+    bwd_record, bwd_vit_cases = _check_vit_attention_bwd(dev, card)
+    records.append(bwd_record)
 
     msda_record, msda_cases = _check_msda(dev, card)
     records.append(msda_record)
@@ -354,7 +386,189 @@ def phase_kernels(dev, card):
     bwd_record, bwd_cases = _check_msda_bwd(dev, card)
     records.append(bwd_record)
     kernels.reset_launch_counts()      # launches made for comparison do not count
-    return records, msda_cases, bwd_cases
+    return records, vit_cases, msda_cases, bwd_cases, bwd_vit_cases
+
+
+def _check_vit_attention(dev, card, rng):
+    """K-A at every case of VIT_CASES, with and without the logsumexp:
+    the output against vit_attention_plain (check_attention), the lse
+    against torch.logsumexp of the plain logits, each timed. At the serving
+    shape also the plain version and the library call: SDPA with the bias
+    materialised once as a bf16 mask. Returns the record (the serving shape's
+    numbers, every case's under "shapes") and the cases."""
+    from hipie_torch.ops.vit_attention import (vit_attention_forward, vit_attention_logits,
+                                               vit_attention_plain, vit_global_attention)
+
+    cases = []
+    for i, (name, bh, kh, kw, hd) in enumerate(VIT_CASES):
+        # the serving case draws from the phase's stream, each other from its own seed
+        r = rng if i == 0 else np.random.RandomState(SEED + 100 + i)
+        n = kh * kw
+        mk = lambda *s, sc=1.0: torch.from_numpy(sc * r.randn(*s).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        q, k, v = mk(bh, n, hd), mk(bh, n, hd), mk(bh, n, hd)
+        rh, rw = mk(bh, n, kh, sc=0.3), mk(bh, n, kw, sc=0.3)
+        scale = hd ** -0.5
+        got = vit_global_attention(q, k, v, rh, rw, scale)
+        want = vit_attention_plain(q, k, v, rh, rw, scale)
+        torch.cuda.synchronize()
+        err, tol, rel = check_attention(f"vit_attention ({name})", got, want)
+        # the training forward: K-A also writes the per-row logsumexp
+        out_lse, lse = vit_attention_forward(q, k, v, rh, rw, scale)
+        lse_want = torch.logsumexp(vit_attention_logits(q, k, rh, rw, scale), -1)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse_want).abs().max().item()
+        if not (torch.equal(out_lse, got) and lse_err <= 1e-4):
+            raise AssertionError(f"vit_attention with lse ({name}): output changed or lse off "
+                                 f"by {lse_err} (tol 1e-4; both take f32 logits, the kernel "
+                                 f"exp2 in another order)")
+        del lse_want
+        ms = cuda_time_ms(lambda: vit_global_attention(q, k, v, rh, rw, scale), 20)
+        lse_ms = cuda_time_ms(lambda: vit_attention_forward(q, k, v, rh, rw, scale), 20)
+        b = bound(4.0 * bh * n * n * hd, nbytes(q, k, v, rh, rw, got), PEAK_BF16_TENSOR,
+                  "tensor cores")
+        c = {"case": name, "bh": bh, "n": n, "hd": hd, "kh": kh, "kw": kw, "ms": ms,
+             "ms_with_lse": lse_ms, "max_abs_err": err, "rel_err": rel,
+             "lse_max_abs_err": lse_err, **b, "shape": vit_shape(q, rh, rw)}
+        line = (f"[kernels] vit_attention {name} BH={bh} N={n} hd={hd} Kh={kh} Kw={kw} bf16: "
+                f"max abs err {err:.3e} (tol {tol:.3e}; relative norm err {rel:.3e}, tol 1e-2), "
+                f"kernel {ms:.4f} ms, with the logsumexp written (training) {lse_ms:.4f} ms, "
+                f"lse max abs err {lse_err:.3e} (tol 1e-4); bound {b['bound_ms']:.4f} ms "
+                f"({b['bound_unit']}: {b['bound_flops'] / 1e9:.1f} GFLOP, "
+                f"{b['bound_bytes'] / 1e6:.1f} MB), kernel at {100 * b['bound_ms'] / ms:.1f}% "
+                f"of the bound")
+        if i == 0:
+            c["plain_ms"] = cuda_time_ms(lambda: vit_attention_plain(q, k, v, rh, rw, scale), 5)
+            # library yardstick: SDPA with the bias materialised once as a bf16 mask
+            make_bias = lambda: (rh[:, :, :, None] + rw[:, :, None, :]).reshape(1, bh, n, n)
+            c["library_bias_build_ms"] = cuda_time_ms(make_bias, 5)
+            bias = make_bias()
+            sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.view(1, bh, n, hd), k.view(1, bh, n, hd), v.view(1, bh, n, hd),
+                attn_mask=bias, scale=scale)
+            lib_err, _, lib_rel = check_attention("the SDPA yardstick", sdpa()[0], want)
+            c["library_ms"] = cuda_time_ms(sdpa, 10)
+            del bias
+            line += (f"; plain {c['plain_ms']:.3f} ms, SDPA with a prebuilt bf16 mask "
+                     f"{c['library_ms']:.4f} ms (max abs err {lib_err:.3e}, relative norm err "
+                     f"{lib_rel:.3e}), mask build {c['library_bias_build_ms']:.4f} ms, kernel "
+                     f"{c['library_ms'] / ms:.2f}x faster than SDPA")
+        log(line + f"; card {card}")
+        cases.append(c)
+        del q, k, v, rh, rw, got, want, out_lse, lse
+    serve = cases[0]
+    record = {"name": "vit_attention", "route": "cuda",
+              "source": "hipie_torch/csrc/vit_attention.cu",
+              "replaces": "hipie_tpu/ops/pallas/vit_attention_kernel.py:148",
+              **{k: serve[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_unit", "bound_flops", "bound_bytes", "library_ms",
+                                       "library_bias_build_ms", "ms_with_lse",
+                                       "lse_max_abs_err")},
+              "library_call": "scaled_dot_product_attention",
+              "shapes": {c["case"]: {k: c[k] for k in ("bh", "n", "hd", "kh", "kw", "ms",
+                                                       "ms_with_lse", "bound_ms", "rel_err",
+                                                       "lse_max_abs_err")}
+                         for c in cases}}
+    return record, cases
+
+
+def _vit_bwd_inputs(bh, kh, kw, hd, dev, seed):
+    """K-E's inputs from ``seed`` with numpy, bf16: q, k, v, the cotangent
+    N(0, 1), rel_h and rel_w N(0, 0.3^2); then K-A's output and logsumexp."""
+    from hipie_torch.ops.vit_attention import vit_attention_forward
+
+    rng = np.random.RandomState(seed)
+    n = kh * kw
+    mk = lambda *s, sc=1.0: torch.from_numpy(sc * rng.randn(*s).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    q, k, v, dout = mk(bh, n, hd), mk(bh, n, hd), mk(bh, n, hd), mk(bh, n, hd)
+    rh, rw = mk(bh, n, kh, sc=0.3), mk(bh, n, kw, sc=0.3)
+    out, lse = vit_attention_forward(q, k, v, rh, rw, hd ** -0.5)
+    return q, k, v, rh, rw, out, lse, dout
+
+
+def _check_vit_attention_bwd(dev, card):
+    """K-E at every case of VIT_BWD_CASES against vit_attention_bwd_plain
+    (check_vit_attention_bwd), timed; at the training shape also the plain
+    version, autograd of vit_attention_plain, and the library call: SDPA's
+    backward with the bias prebuilt as a bf16 mask that requires grad, plus the
+    two reductions of the mask's gradient to d rel_h and d rel_w. Returns the
+    record and the cases."""
+    from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_plain,
+                                               vit_attention_plain)
+
+    cases = []
+    for i, (name, bh, kh, kw, hd) in enumerate(VIT_BWD_CASES):
+        args = _vit_bwd_inputs(bh, kh, kw, hd, dev, SEED + 200 + i)
+        q, k, v, rh, rw, out, lse, dout = args
+        scale = hd ** -0.5
+        got = vit_attention_backward(*args, scale)
+        want = vit_attention_bwd_plain(*args, scale)
+        torch.cuda.synchronize()
+        errs = check_vit_attention_bwd(f"vit_attention_bwd ({name})", got, want)
+        ms = cuda_time_ms(lambda: vit_attention_backward(*args, scale), 10)
+        n = kh * kw
+        # five products of 2 BH N^2 hd; q, k, v, out, dout, rel_h, rel_w and lse
+        # read once, the five gradients written once
+        bnd = bound(5 * 2.0 * bh * n * n * hd, nbytes(*args) + nbytes(*got), PEAK_BF16_TENSOR,
+                    "tensor cores")
+        c = {"case": name, "bh": bh, "n": n, "hd": hd, "kh": kh, "kw": kw, "ms": ms,
+             "rel_err": {k_: e[0] for k_, e in zip(("dq", "dk", "dv", "drel_h", "drel_w"), errs)},
+             "max_abs_err": max(e[2] for e in errs), "bound_ms": bnd["bound_ms"],
+             "shape": vit_shape(q, rh, rw)}
+        line = (f"[kernels] vit_attention_bwd {name} BH={bh} N={n} hd={hd} Kh={kh} Kw={kw} bf16: "
+                f"relative norm err dq/dk/dv/drel_h/drel_w {[f'{e[0]:.2e}' for e in errs]} (tol "
+                f"{[e[1] for e in errs]}), kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+                f"({bnd['bound_unit']}: {bnd['bound_flops'] / 1e9:.1f} GFLOP, "
+                f"{bnd['bound_bytes'] / 1e6:.1f} MB), at {100 * bnd['bound_ms'] / ms:.1f}%")
+        if name == "train":
+            c["plain_ms"] = cuda_time_ms_eager(lambda: vit_attention_bwd_plain(*args, scale), 3)
+            leaves = [t.detach().requires_grad_() for t in (q, k, v, rh, rw)]
+            o = vit_attention_plain(*leaves, scale)
+            c["plain_autograd_ms"] = cuda_time_ms_eager(
+                lambda: torch.autograd.grad(o, leaves, dout, retain_graph=True), 3)
+            del o, leaves
+            bias = (rh[:, :, :, None] + rw[:, :, None, :]).reshape(1, bh, n, n)
+            lib_in = [t.view(1, bh, n, hd).detach().requires_grad_() for t in (q, k, v)]
+            lib_in.append(bias.detach().requires_grad_())
+            o = torch.nn.functional.scaled_dot_product_attention(*lib_in[:3], attn_mask=lib_in[3],
+                                                                 scale=scale)
+
+            def library():
+                dq, dk, dv, dm = torch.autograd.grad(o, lib_in, dout.view(1, bh, n, hd),
+                                                     retain_graph=True)
+                dm = dm.view(bh, n, kh, kw).float()
+                return dq[0], dk[0], dv[0], dm.sum(-1).to(rh.dtype), dm.sum(-2).to(rw.dtype)
+
+            # SDPA rounds P and the mask gradient to bf16 at other points: 1e-2 for all five
+            lib_errs = [rel_norm_err(g, w) for g, w in zip(library(), want)]
+            if not max(lib_errs) <= 1e-2:
+                raise AssertionError(f"the SDPA backward yardstick disagrees with the plain "
+                                     f"version: relative norm errs {lib_errs} (tol 1e-2)")
+            c["library_ms"] = cuda_time_ms_eager(library, 3)
+            del o, lib_in, bias
+            line += (f"; plain {c['plain_ms']:.3f} ms (autograd of vit_attention_plain "
+                     f"{c['plain_autograd_ms']:.3f} ms), SDPA backward with a bf16 mask that "
+                     f"requires grad + the two reductions {c['library_ms']:.4f} ms (relative "
+                     f"norm err against the plain version "
+                     f"{[f'{e:.2e}' for e in lib_errs]}, tol 1e-2)")
+            train_bound = bnd
+        log(line + f"; card {card}")
+        cases.append(c)
+        del args, q, k, v, rh, rw, out, lse, dout, got, want
+    train = cases[0]
+    record = {"name": "vit_attention_bwd", "route": "cuda",
+              "source": "hipie_torch/csrc/vit_attention_bwd.cu",
+              "replaces": "hipie_tpu/ops/pallas/vit_attention_kernel.py:200",
+              "max_abs_err": max(c["max_abs_err"] for c in cases), "ms": train["ms"],
+              "plain_ms": train["plain_ms"], "plain_autograd_ms": train["plain_autograd_ms"],
+              **train_bound, "library_ms": train["library_ms"],
+              "library_call": "scaled_dot_product_attention backward (bf16 mask with grad) + "
+                              "two sums of the mask gradient",
+              "shapes": {c["case"]: {k: c[k] for k in ("bh", "n", "hd", "kh", "kw", "ms",
+                                                       "bound_ms", "rel_err")}
+                         for c in cases}}
+    return record, cases
 
 
 def _check_msda(dev, card):
@@ -819,6 +1033,17 @@ def serve_images(n: int, seed: int = SEED):
             for _ in range(n)]
 
 
+def timing_vit_kernel(shapes):
+    """timing_calls (untimed) around K-A's launcher, through which every
+    K-A launch goes (serving's and the autograd Function's); each launch's
+    vit_shape is appended to ``shapes``."""
+    import hipie_torch.ops.vit_attention as vit_ops
+
+    return timing_calls(vit_ops, "_forward_kernel",
+                        lambda q, k, v, rh, rw, *a, **kw: shapes.append(vit_shape(q, rh, rw)),
+                        timed=False)
+
+
 def phase_serve(dev, card):
     from hipie_torch import kernels
 
@@ -834,8 +1059,8 @@ def phase_serve(dev, card):
     n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
               + mc.maskdino.dec_layers)
     torch.cuda.reset_peak_memory_stats()
-    kb_shapes = []
-    with torch.inference_mode():
+    kb_shapes, ka_shapes = [], []
+    with torch.inference_mode(), timing_vit_kernel(ka_shapes):
         kernels.reset_launch_counts()
         times, ka_ms, kb_ms = [], [], []
         for img in serve_images(N_REQUESTS):
@@ -862,7 +1087,7 @@ def phase_serve(dev, card):
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
     want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
-            "msda_reduce": 0, "ms_deform_attn_bwd": 0}
+            "msda_reduce": 0, "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
     log(f"[serve] kernel launches {launches}, expected {want} "
         f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
     if launches != want:
@@ -870,7 +1095,8 @@ def phase_serve(dev, card):
     kb_per_request = {shape: n / N_REQUESTS for shape, n in Counter(kb_shapes).items()}
     log(f"[serve] K-B launches per request by shape (levels, B, Q, M, D, dtype): "
         f"{kb_per_request}")
-    return launches, {name: count // N_REQUESTS for name, count in launches.items()}, kb_per_request
+    return (launches, {name: count // N_REQUESTS for name, count in launches.items()},
+            kb_per_request, ka_shapes)
 
 
 def _check_prediction(res, task):
@@ -977,7 +1203,7 @@ def phase_predict(dev, card):
     fused_launches = dict(kernels.LAUNCHES)
     n_passes = 2 + 1 + 2
     want = {"vit_attention": 0, "ms_deform_attn": n_msda * n_passes, "msda_reduce": 0,
-            "ms_deform_attn_bwd": 0}
+            "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
     log(f"[predict] fused: kernel launches {fused_launches}, expected {want} "
         f"({n_msda} MSDA layers x {n_passes} model passes)")
     if fused_launches != want:
@@ -989,7 +1215,7 @@ def phase_predict(dev, card):
     _check_prediction(res, "detection")
     flat4_launches = dict(kernels.LAUNCHES)
     want = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": n_msda,
-            "ms_deform_attn_bwd": 0}
+            "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
     log(f"[predict] flat4: kernel launches {flat4_launches}, expected {want}")
     if flat4_launches != want:
         raise AssertionError(f"launch counts {flat4_launches} != {want}")
@@ -1026,16 +1252,46 @@ def phase_predict(dev, card):
 
 
 TRAIN_STEPS = 4
+VIT_TRAIN_STEPS = 3
+VITH_GLOBAL_BLOCKS = 24
 TRAIN_N = 100                 # GT slots (max_insts_num)
 
 
-def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
-    """r50_coco_panoptic() trained at full width through make_train_step and
-    Trainer: f32 master weights, bf16 autocast compute, seeded random init,
-    TRAIN_STEPS optimizer steps on synthetic batches. Returns (per-step kernel
-    launches, K-B shapes, K-D shapes)."""
+def train_launches(cfg, model, img: int = IMG) -> dict:
+    """Each kernel's launches in one training step, counted from the config
+    and the model: K-B once a MSDA layer forward, again for each encoder and
+    decoder layer that ``transformer.remat`` recomputes, K-D once a layer
+    backward; K-A once a global ViT block that takes it (bf16 compute, N >=
+    1024, N % 256 == 0), again under ``backbone.vit_remat``, K-E once each."""
+    from hipie_torch.models.backbone.vit import ViTDet, use_kernel_attention
+
+    mc = cfg.model
+    tc = mc.transformer
+    n_msda = tc.num_encoder_layers + tc.num_decoder_layers + mc.maskdino.dec_layers
+    backbone = model.detr.detr.backbone[0].backbone
+    n_ka = 0
+    if isinstance(backbone, ViTDet):
+        dtype = torch.bfloat16 if mc.dtype == "bfloat16" else torch.float32
+        n_tokens = (img // mc.backbone.vit_patch_size) ** 2
+        n_ka = sum(1 for b in backbone.blocks if b.window_size == 0
+                   and use_kernel_attention(dtype, b.attn.use_rel_pos, n_tokens))
+    return {"vit_attention": n_ka * (2 if getattr(backbone, "remat", False) else 1),
+            "vit_attention_bwd": n_ka,
+            "ms_deform_attn": n_msda + (tc.num_encoder_layers + tc.num_decoder_layers
+                                        if tc.remat else 0),
+            "ms_deform_attn_bwd": n_msda, "msda_reduce": 0}
+
+
+def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
+                steps: int = TRAIN_STEPS):
+    """A config (default r50_coco_panoptic()) trained at full width through
+    make_train_step and Trainer: f32 master weights, bf16 autocast compute,
+    seeded random init, ``steps`` optimizer steps on synthetic batches, the
+    launches of every kernel exact each step (``train_launches``). Returns
+    (launches and times, K-A, K-B, K-D and K-E shapes)."""
     import hipie_torch.models.msda_module as msda_module
     import hipie_torch.ops.ms_deform_attn as msda_ops
+    import hipie_torch.ops.vit_attention as vit_ops
     import hipie_torch.train.step as step_module
     from hipie_torch import kernels
     from hipie_torch.losses import matcher
@@ -1054,11 +1310,16 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
     n_params = sum(p.numel() for p in model.parameters())
     n_train = sum(p.numel() for p in opt.params)
     before = {n: p.detach().clone() for n, p in model.named_parameters() if p.requires_grad}
-    log(f"[train] HIPIEModel(r50_coco_panoptic, train=True) {n_params / 1e6:.1f} M params "
-        f"({n_train / 1e6:.1f} M trainable), f32 master weights, {mc.dtype} compute, built in "
+    log(f"[train] HIPIEModel({mc.backbone.name}, train=True) {n_params / 1e6:.1f} M params "
+        f"({n_train / 1e6:.1f} M trainable), f32 master weights, {mc.dtype} compute, remat "
+        f"backbone {mc.backbone.vit_remat} transformer {mc.transformer.remat}, built in "
         f"{time.perf_counter() - t0:.1f} s")
-    n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
-              + mc.maskdino.dec_layers)
+    want = train_launches(cfg, model, img)
+    backbone = model.detr.detr.backbone[0].backbone
+    drop_masks = []                    # a ViT's drop-path keep masks, step by step
+    if hasattr(backbone, "draw_drop_masks"):
+        draw = backbone.draw_drop_masks
+        backbone.draw_drop_masks = lambda *a: drop_masks.append(draw(*a)) or drop_masks[-1]
     inner = make_train_step(cfg, state, device=dev)
     per_step, terms = [], []
 
@@ -1075,9 +1336,9 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
         terms.append(dict(losses))
         return weight_fn(losses, lcfg)
 
-    batches = train_batches(cfg, TRAIN_STEPS, SEED, img=img, slots=slots, batch=TRAIN_B)
+    batches = train_batches(cfg, steps, SEED, img=img, slots=slots, batch=TRAIN_B)
     trainer = Trainer(cfg, state, train_step, iter(batches), log_period=1, device=dev)
-    kb_shapes, kd_shapes = [], []
+    ka_shapes, kb_shapes, kd_shapes, ke_shapes = [], [], [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     step_module.apply_weight_dict = recording_weights
@@ -1085,9 +1346,13 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
         with timing_calls(msda_module, "ms_deform_attn",
                           lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)), timed=False), \
                 timing_calls(msda_ops, "ms_deform_attn_backward",
-                             lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False):
+                             lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False), \
+                timing_calls(vit_ops, "vit_attention_backward",
+                             lambda *a: ke_shapes.append(vit_shape(a[0], a[3], a[4])),
+                             timed=False), \
+                timing_vit_kernel(ka_shapes):
             kernels.reset_launch_counts()
-            state = trainer.train(max_iter=TRAIN_STEPS)
+            state = trainer.train(max_iter=steps)
             launches = dict(kernels.LAUNCHES)
     finally:
         step_module.apply_weight_dict = weight_fn
@@ -1099,7 +1364,7 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
             raise AssertionError(f"train: non-finite loss terms {bad} in weighted dict {i}")
     n_terms = sum(len(d) for d in terms[:2])
     labels = opt.labels
-    zero_grad = []
+    zero_grad, below_resolution = [], []
     for name, p in model.named_parameters():
         if labels[name] == "frozen":
             if p.requires_grad or p.grad is not None:
@@ -1110,33 +1375,56 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N):
         if not p.grad.any():
             zero_grad.append(name)
         elif torch.equal(p.detach(), before[name]):
-            raise AssertionError(f"train: parameter {name} did not move in {TRAIN_STEPS} steps")
+            # AdamW moves an element by at most ~lr a step, so a step below the
+            # f32 spacing at the element's value may round away: the warmup
+            # starts the backbone group at 1e-8 (base lr x 0.1 x 1e-3), under
+            # the spacing of 6e-8 at a LayerNorm weight's init of 1.0. Such a
+            # parameter must still have the optimizer's moments.
+            w = before[name].abs()
+            spacing = w - torch.nextafter(w, torch.zeros_like(w))
+            lr_max = max(opt.schedules[labels[name]](i) for i in range(steps))
+            moments = opt.opt.state.get(p, {}).get("exp_avg")
+            if moments is None or not moments.any() or not bool((lr_max < spacing).all()):
+                raise AssertionError(f"train: parameter {name} did not move in {steps} steps")
+            below_resolution.append(name)
+    # a global ViT block's attention gets its gradient through K-E: nonzero
+    # unless drop path dropped its branch for every sample of the last step
+    last = drop_masks[-1] if drop_masks else None
+    through_ke = [f"detr.detr.backbone.0.backbone.blocks.{i}.attn.{p}"
+                  for i, b in enumerate(getattr(backbone, "blocks", []))
+                  if b.window_size == 0 and (last is None or last[i, 0].any())
+                  for p in ("qkv.weight", "qkv.bias", "rel_pos_h", "rel_pos_w")]
+    if set(through_ke) & set(zero_grad) or not set(through_ke) <= set(labels):
+        raise AssertionError(f"train: global-block attention parameters without a gradient: "
+                             f"{sorted(set(through_ke) & set(zero_grad))}")
     base_fn = lr_schedule(cfg.solver, cfg.solver.base_lr)
     for i, h in enumerate(trainer.history):
         if h["lr"] != base_fn(i) or not np.isfinite(h["total_loss"]):
             raise AssertionError(f"train: step {i} lr {h['lr']} (schedule {base_fn(i)}), total "
                                  f"loss {h['total_loss']}")
     for g in opt.opt.param_groups:
-        want = opt.schedules[g["group"]](TRAIN_STEPS - 1)
-        if g["lr"] != want:
-            raise AssertionError(f"train: group {g['group']} lr {g['lr']} != schedule {want}")
-    want = {"ms_deform_attn": n_msda, "ms_deform_attn_bwd": n_msda}
+        lr = opt.schedules[g["group"]](steps - 1)
+        if g["lr"] != lr:
+            raise AssertionError(f"train: group {g['group']} lr {g['lr']} != schedule {lr}")
     for i, (counts, _) in enumerate(per_step):
-        if any(counts[k] != n for k, n in want.items()) or counts["vit_attention"]:
+        if counts != want:
             raise AssertionError(f"train: step {i} launched {counts}, expected {want} a step")
     times = [h["time_s"] * 1e3 for h in trainer.history]
     syncs = [n for _, n in per_step]
-    log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_B} at {img}x{img}: total loss "
+    log(f"[train] {mc.backbone.name}: {steps} steps of batch {TRAIN_B} at {img}x{img}: total loss "
         f"{[round(h['total_loss'], 4) for h in trainer.history]}, lr (base group) "
         f"{[h['lr'] for h in trainer.history]}, grad norm "
         f"{[round(h['grad_norm'], 4) for h in trainer.history]}; {n_terms} loss terms a step, "
         f"all finite; {len(zero_grad)} trainable tensors with an all-zero gradient "
-        f"{zero_grad[:6]}")
+        f"{zero_grad[:6]}; {len(below_resolution)} unmoved, their steps below f32 resolution "
+        f"{below_resolution[:4]}")
     log(f"[train] ms per step {[round(t, 1) for t in times]}; after the first: mean "
         f"{np.mean(times[1:]):.1f} ms; peak memory {peak:.2f} GiB; matcher host syncs per step "
-        f"{syncs}; kernel launches per step {per_step[-1][0]}; card {card}")
+        f"{syncs}; kernel launches per step {per_step[-1][0]} (expected {want}); "
+        f"{len(through_ke) // 4} global blocks' attention checked for a nonzero gradient; "
+        f"card {card}")
     return ({"launches": launches, "per_step": per_step[-1][0], "ms_per_step": times,
-             "peak_gib": peak, "syncs": syncs}, kb_shapes, kd_shapes)
+             "peak_gib": peak, "syncs": syncs}, ka_shapes, kb_shapes, kd_shapes, ke_shapes)
 
 
 def main() -> int:
@@ -1148,17 +1436,35 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    records, msda_cases, bwd_cases = phase_kernels(dev, card)
+    records, vit_cases, msda_cases, bwd_cases, vit_bwd_cases = phase_kernels(dev, card)
     phase_reference(dev)
-    launches, per_request, kb_per_request = phase_serve(dev, card)
+    launches, per_request, kb_per_request, serve_ka = phase_serve(dev, card)
     predict_shapes = []
     with timing_msda(predict_shapes):
         launches["msda_reduce"] = phase_predict(dev, card)["msda_reduce"]
-    train, train_kb, train_kd = phase_train(dev, card)
+    train, train_ka, train_kb, train_kd, _ = phase_train(dev, card)
+    torch.cuda.empty_cache()
+    from hipie_torch.presets import vit_huge_coco_panoptic
+
+    vit_train, vit_ka, vit_kb, vit_kd, vit_ke = phase_train(
+        dev, card, cfg=vit_huge_coco_panoptic(), steps=VIT_TRAIN_STEPS)
+    # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
+    # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
+    # must take K-A, again under vit_remat, and K-E for its gradient: counted
+    # here without the dispatch predicate that train_launches shares with the
+    # model.
+    vit_want = {"vit_attention": 2 * VITH_GLOBAL_BLOCKS, "vit_attention_bwd": VITH_GLOBAL_BLOCKS}
+    vit_got = {k: vit_train["per_step"][k] for k in vit_want}
+    if vit_got != vit_want:
+        raise AssertionError(f"ViT-H train step launched {vit_got} of K-A and K-E, expected "
+                             f"{vit_want}")
+    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
-                                     if s])
-    check_coverage("K-D", bwd_cases, train_kd)
+                                     + vit_kb if s])
+    check_coverage("K-D", bwd_cases, train_kd + vit_kd)
+    check_coverage("K-E", vit_bwd_cases, vit_ke)
     launches["ms_deform_attn_bwd"] = train["launches"]["ms_deform_attn_bwd"]
+    launches["vit_attention_bwd"] = vit_train["launches"]["vit_attention_bwd"]
     for r in records:
         r["launches"] = launches[r["name"]]
         if r["name"] in per_request:
@@ -1171,6 +1477,14 @@ def main() -> int:
     kd["launches_per_train_step"] = train["per_step"]["ms_deform_attn_bwd"]
     kd["train_ms_per_step"] = train["ms_per_step"]
     kd["train_peak_gib"] = train["peak_gib"]
+    for r in records:
+        if r["name"] in ("vit_attention", "vit_attention_bwd", "ms_deform_attn",
+                         "ms_deform_attn_bwd"):
+            r["launches_per_vit_huge_train_step"] = vit_train["per_step"][r["name"]]
+    ke = next(r for r in records if r["name"] == "vit_attention_bwd")
+    ke["vit_huge_train_ms_per_step"] = vit_train["ms_per_step"]
+    ke["vit_huge_train_peak_gib"] = vit_train["peak_gib"]
+    ke["vit_huge_train_syncs"] = vit_train["syncs"]
     kb["launches_per_request_by_case"] = {
         c["case"]: kb_per_request[c["shape"]] for c in msda_cases
         if c["locations"] == "uniform" and c["shape"] in kb_per_request}

@@ -8,7 +8,10 @@
 // with q, k, v: (BH, N, HD) bf16, rel_h: (BH, N, Kh) bf16, rel_w: (BH, N, Kw)
 // bf16, N == Kh * Kw, f32 logits and softmax, P rounded to bf16 before P.V (as
 // the TPU kernel), bf16 output. ViT-H at 1024^2: BH = 16 per image, N = 4096,
-// HD = 80, Kh = Kw = 64, 24 global blocks per image.
+// HD = 80, Kh = Kw = 64, 24 global blocks per image. Training also asks for
+// the per-row logsumexp of the logits, lse (BH, N) f32 in natural-log units,
+// which the backward (kernel K-E, vit_attention_bwd.cu) recomputes P from;
+// serving passes a null pointer and writes nothing more.
 //
 // What bounds it on the H100: the tensor cores. The work is 2 * 2 * BH * N^2 * HD
 // = 85.9 GFLOP at the ViT-H shape, 0.087 ms at 989 TFLOP/s bf16, while the bytes
@@ -412,7 +415,7 @@ vit_attention_kernel(const __grid_constant__ CUtensorMap q_wide,
                      const __grid_constant__ CUtensorMap v_slab,
                      const __nv_bfloat16* __restrict__ rel_h,
                      const __nv_bfloat16* __restrict__ rel_w,
-                     __nv_bfloat16* __restrict__ out,
+                     __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                      int n, int kh, int kw, float scale, int table_in_smem) {
   constexpr int kStages = kFast ? 4 : 3;
   using L = Smem<HD, kStages>;
@@ -552,6 +555,9 @@ vit_attention_kernel(const __grid_constant__ CUtensorMap q_wide,
       const float inv = 1.f / l;
       const int r = row_a + 8 * i;
       if (r < q_valid) {
+        // m_run is the row max of q.k * scale + rel_h + rel_w in natural units
+        // and l the sum of exp(logit - m_run), so lse = m_run + ln(l)
+        if (lse != nullptr && lane % 4 == 0) lse[row0 + r] = m_run[i] + logf(l);
         __nv_bfloat16* dst = out + (row0 + r) * HD + 2 * (lane % 4);
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j)
@@ -615,7 +621,7 @@ bool make_maps(CUtensorMap* wide, CUtensorMap* slab, const void* ptr, int bh, in
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* rel_h,
-                   const void* rel_w, void* out, int bh, int n, int kh, int kw,
+                   const void* rel_w, void* out, void* lse, int bh, int n, int kh, int kw,
                    float scale, cudaStream_t stream) {
   CUtensorMap qw, qs, kw_, ks, vw, vs;
   if (!make_maps<HD>(&qw, &qs, q, bh, n) || !make_maps<HD>(&kw_, &ks, k, bh, n)
@@ -637,22 +643,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* rel_
   dim3 grid((n + kTileQ - 1) / kTileQ, bh);
   kernel<<<grid, kThreads, bytes, stream>>>(
       qw, qs, kw_, ks, vw, vs, static_cast<const __nv_bfloat16*>(rel_h),
-      static_cast<const __nv_bfloat16*>(rel_w), static_cast<__nv_bfloat16*>(out), n, kh, kw,
-      scale, in_smem ? 1 : 0);
+      static_cast<const __nv_bfloat16*>(rel_w), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(lse), n, kh, kw, scale, in_smem ? 1 : 0);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// lse: (BH, N) f32, or null where only the output is wanted (serving).
 extern "C" int hipie_vit_attention(const void* q, const void* k, const void* v,
-                                   const void* rel_h, const void* rel_w, void* out,
+                                   const void* rel_h, const void* rel_w, void* out, void* lse,
                                    int bh, int n, int hd, int kh, int kw, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(q, k, v, rel_h, rel_w, out, bh, n, kh, kw, scale, s);
-    case 64: return launch<64>(q, k, v, rel_h, rel_w, out, bh, n, kh, kw, scale, s);
-    case 80: return launch<80>(q, k, v, rel_h, rel_w, out, bh, n, kh, kw, scale, s);
+    case 16: return launch<16>(q, k, v, rel_h, rel_w, out, lse, bh, n, kh, kw, scale, s);
+    case 64: return launch<64>(q, k, v, rel_h, rel_w, out, lse, bh, n, kh, kw, scale, s);
+    case 80: return launch<80>(q, k, v, rel_h, rel_w, out, lse, bh, n, kh, kw, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -37,8 +37,9 @@ _vp = ctypes.c_void_p
 _int = ctypes.c_int
 # C entry points: name -> argtypes. Every entry returns cudaGetLastError().
 _SIGNATURES = {
-    "hipie_vit_attention": [_vp, _vp, _vp, _vp, _vp, _vp,
+    "hipie_vit_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                             _int, _int, _int, _int, _int, ctypes.c_float, _vp],
+    "hipie_vit_attention_bwd": [_vp] * 14 + [_int, _int, _int, _int, _int, ctypes.c_float, _vp],
     "hipie_ms_deform_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                              _int, _int, _int, _int, _int, _int, _vp],
     "hipie_ms_deform_attn_constants": [_vp],

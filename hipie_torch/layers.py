@@ -16,6 +16,16 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+
+def maybe_checkpoint(remat: bool, fn, *args):
+    """fn(*args); with ``remat`` and grad enabled, under activation
+    checkpointing (the JAX package's ``nn.remat``): the activations inside fn
+    are recomputed in the backward instead of kept."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -29,11 +29,12 @@ def build_backbone(cfg: BackboneConfig) -> Tuple[nn.Module, Dict[str, int]]:
         return mod, chans
     if cfg.name not in VIT_VARIANTS:
         raise NotImplementedError(f"backbone {cfg.name!r} is not ported to hipie_torch yet")
-    embed_dim, depth, num_heads, _drop_path = VIT_VARIANTS[cfg.name]
+    embed_dim, depth, num_heads, drop_path = VIT_VARIANTS[cfg.name]
     mod = ViTDet(img_size=cfg.vit_img_size, patch_size=cfg.vit_patch_size,
                  embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-                 window_size=cfg.vit_window_size, use_rel_pos=cfg.vit_use_rel_pos,
-                 out_features=cfg.out_features)
+                 drop_path_rate=drop_path, window_size=cfg.vit_window_size,
+                 use_rel_pos=cfg.vit_use_rel_pos, out_features=cfg.out_features,
+                 remat=cfg.vit_remat)
     chans = {k: v for k, v in vit_feature_channels(embed_dim).items() if k in cfg.out_features}
     return mod, chans
 

@@ -3,22 +3,28 @@ relative positions, simple feature pyramid. NHWC in and out.
 
 Counterpart of hipie_tpu/models/backbone/vit.py (reference hipie/backbone/vit.py).
 Parameter names follow the reference (patch_embed.proj, pos_embed,
-blocks.N.{norm1, attn.qkv, attn.rel_pos_h, ...}, fpn1.0). Global blocks in bf16
-run kernel K-A through ``vit_global_attention``; windowed blocks and the f32
-path are plain torch, as they are plain XLA in JAX.
+blocks.N.{norm1, attn.qkv, attn.rel_pos_h, ...}, fpn1.0). Global blocks run
+``vit_global_attention`` (kernel K-A, and K-E for its gradient, on the card)
+where JAX takes its Pallas kernel: bf16 compute (bf16 weights, or bf16 autocast
+in training), N >= 1024 and N % 256 == 0 (``use_kernel_attention``); windowed
+blocks and the rest are plain torch, as they are plain XLA in JAX. Training
+adds drop path, from keep masks drawn before the forward
+(``ViTDet.draw_drop_masks``), and activation checkpointing per block
+(``remat``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from hipie_torch.layers import gelu, nchw_to_nhwc, nhwc_to_nchw
+from hipie_torch.layers import gelu, maybe_checkpoint, nchw_to_nhwc, nhwc_to_nchw
 from hipie_torch.ops.vit_attention import vit_global_attention
+from hipie_torch.utils.rng import Keys
 
 VIT_VARIANTS = {
     # name: (embed_dim, depth, num_heads, drop_path) — reference vit.py:386-398
@@ -127,6 +133,30 @@ def add_decomposed_rel_pos(attn, q, rel_pos_h, rel_pos_w, q_hw, k_hw):
     return attn.reshape(b, q_h * q_w, k_h * k_w)
 
 
+def use_kernel_attention(dtype: torch.dtype, use_rel_pos: bool, n: int) -> bool:
+    """Whether a global block takes ``vit_global_attention``: JAX's condition
+    for its Pallas kernel (hipie_tpu/models/backbone/vit.py:140-144) without
+    the backend term. ``dtype`` is the compute dtype, q's after the qkv
+    projection (bf16 under autocast although LayerNorm gives f32)."""
+    return dtype == torch.bfloat16 and use_rel_pos and n >= 1024 and n % 256 == 0
+
+
+def drop_path_rates(rate: float, depth: int) -> List[float]:
+    """Per-block drop-path rates, linear from 0 to ``rate``, as JAX's ViTDet."""
+    return [rate * i / max(depth - 1, 1) for i in range(depth)]
+
+
+def drop_path(y: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """JAX's ``ViTBlock._drop_path`` with its Bernoulli draw given: y (B, ...)
+    times mask (B,) / keep, the scale formed in f32 and cast to y's dtype. No
+    mask: the identity (eval)."""
+    if mask is None:
+        return y
+    keep = 1.0 - torch.tensor(rate, dtype=torch.float32)
+    scale = (mask.float() / keep.clamp(min=1e-6)).to(y.dtype)
+    return y * scale.reshape((-1,) + (1,) * (y.dim() - 1))
+
+
 class ViTAttention(nn.Module):
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool = True,
                  input_size: Tuple[int, int] = (14, 14)):
@@ -146,13 +176,13 @@ class ViTAttention(nn.Module):
         hd = c // nh
         qkv = self.qkv(x.reshape(b, h * w, c)).reshape(b, h * w, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2).reshape(b * nh, h * w, hd) for i in range(3))
-        if global_attn and self.use_rel_pos and x.dtype == torch.bfloat16:
-            # kernel K-A; the bias coefficients are q contracted with the tables
+        if global_attn and use_kernel_attention(q.dtype, self.use_rel_pos, h * w):
+            # kernels K-A / K-E; the bias coefficients are q contracted with the tables
             rh = get_rel_pos(h, h, self.rel_pos_h).to(q.dtype)
             rw = get_rel_pos(w, w, self.rel_pos_w).to(q.dtype)
             r_q = q.reshape(b * nh, h, w, hd)
-            rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh).reshape(b * nh, h * w, h)
-            rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw).reshape(b * nh, h * w, w)
+            rel_h = torch.einsum("bhwc,hkc->bhwk", r_q, rh).reshape(b * nh, h * w, h).to(q.dtype)
+            rel_w = torch.einsum("bhwc,wkc->bhwk", r_q, rw).reshape(b * nh, h * w, w).to(q.dtype)
             out = vit_global_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                        rel_h.contiguous(), rel_w.contiguous(), hd ** -0.5)
         else:
@@ -160,7 +190,7 @@ class ViTAttention(nn.Module):
             if self.use_rel_pos:
                 attn = add_decomposed_rel_pos(attn, q, self.rel_pos_h, self.rel_pos_w,
                                               (h, w), (h, w))
-            attn = attn.float().softmax(-1).to(x.dtype)
+            attn = attn.float().softmax(-1).to(q.dtype)
             out = torch.einsum("bqk,bkd->bqd", attn, v)
         out = out.reshape(b, nh, h * w, hd).transpose(1, 2).reshape(b, h, w, c)
         return self.proj(out)
@@ -179,16 +209,20 @@ class ViTMlp(nn.Module):
 class ViTBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  use_rel_pos: bool = True, window_size: int = 0,
-                 input_size: Tuple[int, int] = (64, 64)):
+                 input_size: Tuple[int, int] = (64, 64), drop_path: float = 0.0):
         super().__init__()
         self.window_size = window_size
+        self.drop_path = drop_path
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         size = (window_size, window_size) if window_size > 0 else input_size
         self.attn = ViTAttention(dim, num_heads, use_rel_pos=use_rel_pos, input_size=size)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = ViTMlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x):
+    def forward(self, x, masks: Optional[torch.Tensor] = None):
+        """masks: (2, B) keep masks of the attention and MLP branches' drop
+        path, or None (the identity)."""
+        m_attn, m_mlp = (None, None) if masks is None else masks
         y = self.norm1(x)
         if self.window_size > 0:
             hw = (y.shape[1], y.shape[2])
@@ -197,8 +231,8 @@ class ViTBlock(nn.Module):
             y = window_unpartition(y, self.window_size, padded, hw)
         else:
             y = self.attn(y, global_attn=True)
-        x = x + y
-        return x + self.mlp(self.norm2(x))
+        x = x + drop_path(y, m_attn, self.drop_path)
+        return x + drop_path(self.mlp(self.norm2(x)), m_mlp, self.drop_path)
 
 
 class PatchEmbed(nn.Module):
@@ -213,17 +247,23 @@ class PatchEmbed(nn.Module):
 class ViTDet(nn.Module):
     """Plain-ViT detection backbone: NHWC image -> {res3, res4, res5} NHWC maps.
 
-    Inference only: drop path is the identity and is not built.
+    Drop path (rate ``drop_path_rate`` at the last block, linear from 0) runs
+    where ``forward`` is given keep masks (``draw_drop_masks``), and is the
+    identity otherwise. With ``remat``, each block runs under
+    ``torch.utils.checkpoint`` while grad is enabled (JAX's ``nn.remat``): its
+    activations are recomputed in the backward, with the same masks.
     """
 
     def __init__(self, img_size: int = 1024, patch_size: int = 16, embed_dim: int = 1280,
                  depth: int = 32, num_heads: int = 16, mlp_ratio: float = 4.0,
-                 window_size: int = 14,
+                 drop_path_rate: float = 0.0, window_size: int = 14,
                  window_block_indexes: Tuple[int, ...] = (0, 1, 3, 4, 6, 7, 9, 10),
                  use_rel_pos: bool = True, pretrain_img_size: int = 224,
                  pretrain_use_cls_token: bool = True,
-                 out_features: Tuple[str, ...] = ("res3", "res4", "res5")):
+                 out_features: Tuple[str, ...] = ("res3", "res4", "res5"),
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.pretrain_use_cls_token = pretrain_use_cls_token
         self.out_features = tuple(out_features)
         self.patch_embed = PatchEmbed(patch_size, 3, embed_dim)
@@ -233,17 +273,31 @@ class ViTDet(nn.Module):
         input_size = (img_size // patch_size,) * 2
         self.blocks = nn.ModuleList(
             ViTBlock(embed_dim, num_heads, mlp_ratio, use_rel_pos,
-                     window_size if i in window_block_indexes else 0, input_size)
-            for i in range(depth))
+                     window_size if i in window_block_indexes else 0, input_size, rate)
+            for i, rate in enumerate(drop_path_rates(drop_path_rate, depth)))
         if "res3" in self.out_features:
             self.fpn1 = nn.Sequential(nn.ConvTranspose2d(embed_dim, embed_dim // 2, 2, stride=2))
 
-    def forward(self, x) -> Dict[str, torch.Tensor]:
+    def draw_drop_masks(self, keys: Keys, batch: int) -> Optional[torch.Tensor]:
+        """(depth, 2, batch) f32 keep masks for ``forward``, Bernoulli(1 - rate)
+        per block (attention and MLP branch) and sample, drawn from ``keys``;
+        None where no block drops."""
+        if not any(blk.drop_path > 0 for blk in self.blocks):
+            return None
+        dev = self.pos_embed.device
+        keep = 1.0 - torch.tensor([blk.drop_path for blk in self.blocks], dtype=torch.float32,
+                                  device=dev)
+        u = keys.uniform((len(self.blocks), 2, batch), device=dev)
+        return (u < keep[:, None, None]).float()
+
+    def forward(self, x, drop_masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """x (B, H, W, 3); drop_masks (depth, 2, B) from ``draw_drop_masks`` in
+        training, None otherwise."""
         x = self.patch_embed(x.to(self.pos_embed.dtype))
         x = x + resize_abs_pos(self.pos_embed, self.pretrain_use_cls_token,
                                (x.shape[1], x.shape[2])).to(x.dtype)
-        for blk in self.blocks:
-            x = blk(x)
+        for i, blk in enumerate(self.blocks):
+            x = maybe_checkpoint(self.remat, blk, x, None if drop_masks is None else drop_masks[i])
         outputs = {}
         if "res3" in self.out_features:
             outputs["res3"] = nchw_to_nhwc(self.fpn1(nhwc_to_nchw(x)))

@@ -124,7 +124,8 @@ class HIPIEDetector(nn.Module):
                 self_attn_mask: Optional[torch.Tensor] = None,
                 maskdino_dn_refs: Optional[torch.Tensor] = None,
                 maskdino_dn_valid: Optional[torch.Tensor] = None,
-                maskdino_attn_mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                maskdino_attn_mask: Optional[torch.Tensor] = None,
+                drop_path_masks: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """images (B, H, W, 3) normalised NHWC; pad_mask (B, H, W) True = pad;
         lang_hidden (B, L, lang_dim); lang_masks (B, L); image_sizes (B, 2) (h, w);
         task "detection" (class logits per token) or "grounding" (one logit
@@ -136,12 +137,20 @@ class HIPIEDetector(nn.Module):
         ("ctrl_params", f32) and input references ("layer_refs"), and
         MaskDINO's training outputs with every prediction projected against the
         prompt. The CDN arguments (from hipie_torch.models.dn.prepare_cdn) put
-        the noised queries in front of both decoders' queries."""
+        the noised queries in front of both decoders' queries. ``drop_path_masks``
+        (a ViT backbone's ``draw_drop_masks``) turns on its drop path; training
+        only, as JAX's ``backbone(images, deterministic=not train)``."""
         c = self.cfg
         detr = self.detr
         if train and not self.train_heads:
             raise ValueError("HIPIEDetector: train=True needs a model built with train=True")
-        features = detr.backbone[0].backbone(images)
+        backbone = detr.backbone[0].backbone
+        if drop_path_masks is None:
+            features = backbone(images)
+        elif train:
+            features = backbone(images, drop_masks=drop_path_masks)
+        else:
+            raise ValueError("HIPIEDetector: drop_path_masks are for train=True")
         srcs, masks, poses = self._project_levels(features, pad_mask)
         n_dec = c.transformer.num_decoder_layers
         dn_tgt = None

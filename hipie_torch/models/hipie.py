@@ -75,7 +75,8 @@ class HIPIEModel(nn.Module):
         Pass ``lang_hidden`` from ``encode_text`` to reuse a fixed prompt's features.
         ``train=True`` returns the training outputs; ``dn_kwargs`` are the CDN
         queries (dn_labels, dn_valid, dn_refs_unact, self_attn_mask,
-        maskdino_dn_refs, maskdino_dn_valid, maskdino_attn_mask), as
+        maskdino_dn_refs, maskdino_dn_valid, maskdino_attn_mask) and a ViT
+        backbone's drop-path keep masks (drop_path_masks), as
         hipie_torch.train.step passes them."""
         if task not in ("detection", "grounding"):
             raise ValueError(f"task must be 'detection' or 'grounding', got {task!r}")

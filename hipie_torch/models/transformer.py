@@ -11,7 +11,10 @@ Module names follow the reference's state_dict (encoder.layers.N,
 encoder.vl_layers.N.b_attn, decoder.layers.N, decoder.ref_point_head). The box
 heads and the encoder class head live in the detector (detr.bbox_embed,
 detr.class_embed) as in the reference, and are passed in. ``msda_method``
-("fused" or "flat4") goes to every MSDeformAttn. Not ported yet:
+("fused" or "flat4") goes to every MSDeformAttn. ``remat`` (JAX's
+``nn.remat`` of the encoder and decoder layers) runs each encoder layer, with
+its bi-attention, and each decoder layer under ``torch.utils.checkpoint``
+while grad is enabled. Not ported yet:
 language-derived bg queries, the in-encoder BERT layers and the non-decoupled
 content mode.
 """
@@ -25,7 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hipie_torch.config import TransformerConfig
-from hipie_torch.layers import MLP, MultiHeadAttention
+from hipie_torch.layers import MLP, MultiHeadAttention, maybe_checkpoint
 from hipie_torch.models.fusion import BiAttentionBlock
 from hipie_torch.models.heads import FeatureResizer, agg_lang_feat
 from hipie_torch.models.msda_module import MSDeformAttn
@@ -98,6 +101,7 @@ class _VLLayer(nn.Module):
 class VLEncoder(nn.Module):
     def __init__(self, c: TransformerConfig, lang_dim: int, msda_method: str = "fused"):
         super().__init__()
+        self.remat = c.remat
         n_vl = min(c.num_vl_layers, c.num_encoder_layers) if c.use_vl_fusion else 0
         self.layers = nn.ModuleList(
             DeformableEncoderLayer(c.d_model, c.dim_feedforward, c.num_feature_levels,
@@ -111,8 +115,14 @@ class VLEncoder(nn.Module):
     def forward(self, memory, l_hidden, pos, enc_ref, spatial_shapes, mask_flat, lang_masks):
         for i, layer in enumerate(self.layers):
             if i < len(self.vl_layers):
-                memory, l_hidden = self.vl_layers[i].b_attn(memory, l_hidden, lang_masks)
-            memory = layer(memory, pos, enc_ref, spatial_shapes, mask_flat)
+                def step(memory, l_hidden, i=i, layer=layer):
+                    memory, l_hidden = self.vl_layers[i].b_attn(memory, l_hidden, lang_masks)
+                    return layer(memory, pos, enc_ref, spatial_shapes, mask_flat), l_hidden
+
+                memory, l_hidden = maybe_checkpoint(self.remat, step, memory, l_hidden)
+            else:
+                memory = maybe_checkpoint(self.remat, layer, memory, pos, enc_ref, spatial_shapes,
+                                          mask_flat)
         return memory, l_hidden
 
 
@@ -248,8 +258,8 @@ class VLDeformableTransformer(nn.Module):
             ref_input = reference_points[:, :, None, :] * vr2
             query_sine = sine_position_embedding_1d(ref_input[:, :, 0, :], num_feats=c.d_model // 2)
             query_pos = self.decoder.ref_point_head(query_sine.to(dtype))
-            output = layer(output, query_pos, ref_input, memory, spatial_shapes, mask_flat,
-                           self_attn_mask)
+            output = maybe_checkpoint(c.remat, layer, output, query_pos, ref_input, memory,
+                                      spatial_shapes, mask_flat, self_attn_mask)
             delta = bbox_heads[lid](output).float()
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
             reference_points = new_ref.detach()

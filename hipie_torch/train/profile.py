@@ -1,16 +1,18 @@
-"""Where the R50 training step's time goes, on one card.
+"""Where a training step's time goes, on one card.
 
-    python3 -m hipie_torch.train.profile [--steps 3] [--seed 0]
+    python3 -m hipie_torch.train.profile [--preset r50|vit_huge] [--steps 3] [--seed 0]
 
-The step is the one chip_smoke.py's train phase drives: r50_coco_panoptic()
-at full width, batch 2 of 1024x1024 canvases (hipie_torch/train/synthetic.py),
-bf16 autocast, seeded random weights. 2 warm-up steps, then ``--steps`` steps
-timed by the host clock (each ends in a synchronize), the same steps with CUDA
-events at the step's named ranges (hipie_torch/train/step.py ``scope``: cdn,
-forward, each criterion pass, backward, optimizer) for the device time between
-a range's start and end, and one step under torch.profiler for the device's
-busy time (the sum of its kernels' and copies' times), idle share and top
-kernels, with K-B's and K-D's device time and launches.
+The step is one of those chip_smoke.py's train phases drive: the preset's
+config (r50_coco_panoptic() or vit_huge_coco_panoptic(), with its drop path
+and activation checkpointing) at full width, batch 2 of 1024x1024 canvases
+(hipie_torch/train/synthetic.py), bf16 autocast, seeded random weights. 2
+warm-up steps, then ``--steps`` steps timed by the host clock (each ends in a
+synchronize), the same steps with CUDA events at the step's named ranges
+(hipie_torch/train/step.py ``scope``: cdn, forward, each criterion pass,
+backward, optimizer) for the device time between a range's start and end, and
+one step under torch.profiler for the device's busy time (the sum of its
+kernels' and copies' times), idle share and top kernels, with the device time
+and launches of K-A, K-E, K-B and K-D.
 
 Prints one line per measurement, then one JSON line.
 """
@@ -63,16 +65,16 @@ class _PhaseTimer:
         return out
 
 
-def profile_step(dev, card, steps: int, seed: int):
+def profile_step(dev, card, steps: int, seed: int, preset: str = "r50"):
     import hipie_torch.train.step as step_module
     from hipie_torch import kernels
     from hipie_torch.losses import matcher
-    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.presets import r50_coco_panoptic, vit_huge_coco_panoptic
     from hipie_torch.train.synthetic import train_batches
     from hipie_torch.utils.rng import GeneratorKeys
 
-    cfg = dataclasses.replace(r50_coco_panoptic(),
-                              output_dir=tempfile.mkdtemp(prefix="hipie_train_"))
+    make_cfg = {"r50": r50_coco_panoptic, "vit_huge": vit_huge_coco_panoptic}[preset]
+    cfg = dataclasses.replace(make_cfg(), output_dir=tempfile.mkdtemp(prefix="hipie_train_"))
     state = step_module.create_train_state(cfg, seed=seed, device=dev)
     step = step_module.make_train_step(cfg, state, device=dev)
     keys = GeneratorKeys(torch.Generator(device=dev).manual_seed(seed))
@@ -120,10 +122,15 @@ def profile_step(dev, card, steps: int, seed: int):
         raise SystemExit("profile: the profiler recorded no device time")
     per_kernel = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in per_kernel)
-    own = {name: [sum(r[i] for r in per_kernel if f"{name}_kernel" in r[0]) for i in (1, 2)]
-           for name in ("ms_deform_attn", "ms_deform_attn_bwd")}
+    # device kernels by the hand-written kernels' names (K-E is two: dq_kernel, dkv_kernel)
+    kernel_names = {"vit_attention": ("vit_attention_kernel",),
+                    "vit_attention_bwd": ("dq_kernel", "dkv_kernel"),
+                    "ms_deform_attn": ("ms_deform_attn_kernel",),
+                    "ms_deform_attn_bwd": ("ms_deform_attn_bwd_kernel",)}
+    own = {name: [sum(r[i] for r in per_kernel if any(k in r[0] for k in keys)) for i in (1, 2)]
+           for name, keys in kernel_names.items()}
     plain_mean = float(np.mean(plain_ms))
-    print(f"train step, card {card}: {WARMUP} warm-up steps; ms per step "
+    print(f"{preset} train step, card {card}: {WARMUP} warm-up steps; ms per step "
           f"{[round(t, 1) for t in plain_ms]}, mean {plain_mean:.1f}; peak memory {peak:.2f} GiB; "
           f"matcher host syncs per step {syncs:.1f}")
     print("device ms between the start and end of each named range (mean of "
@@ -132,10 +139,12 @@ def profile_step(dev, card, steps: int, seed: int):
           f"{1 - busy / plain_mean:.4f} of the plain steps' mean ({1 - busy / prof_ms:.4f} of "
           f"the profiled step); launches {launches}")
     for name, (ms, count) in own.items():
-        print(f"{name}: {ms:.3f} ms of device time in {count} launches")
+        print(f"{name}: {ms:.3f} ms of device time in {count} device kernels "
+              f"({launches[name]} launches of its wrapper)")
     for name, ms, count in per_kernel[:20]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name[:110]}")
-    return {"card": card, "plain_ms": plain_ms, "peak_gib": peak, "host_syncs": syncs,
+    return {"preset": preset, "card": card, "plain_ms": plain_ms, "peak_gib": peak,
+            "host_syncs": syncs,
             "phases_ms": phases, "profiled_ms": prof_ms, "device_busy_ms": busy,
             "idle_share": 1 - busy / plain_mean, "launches": launches,
             "kernel_device_ms": {n: v[0] for n, v in own.items()},
@@ -145,6 +154,7 @@ def profile_step(dev, card, steps: int, seed: int):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--preset", choices=("r50", "vit_huge"), default="r50")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -154,7 +164,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_name()
-    out = profile_step(dev, card, args.steps, args.seed)
+    out = profile_step(dev, card, args.steps, args.seed, args.preset)
     print(json.dumps(out))
     return 0
 

@@ -14,7 +14,10 @@ queries, seg-DN slots and the two-stage ("interm") prediction.
 Precision follows the JAX package's ``dtype="bfloat16"`` with f32 parameters:
 the forward runs under ``torch.autocast`` in bf16 when the config's dtype is
 bfloat16, with sampling locations, attention and class logits in f32 as the
-modules cast them; every loss is computed in f32 outside autocast. The step
+modules cast them; every loss is computed in f32 outside autocast. A ViT
+backbone's drop-path masks are drawn before the forward; ``backbone.vit_remat``
+and ``transformer.remat`` checkpoint the blocks and layers (the models read
+them). The step
 is eager; it runs on the card unless the caller passes ``device="cpu"``. Its
 parts carry torch.profiler ranges ("cdn", "forward", "crit_fg", "crit_enc",
 "crit_gt_dn", "crit_maskdino", "crit_maskdino_dn", "crit_maskdino_interm",
@@ -87,6 +90,10 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
     n_match = mc.transformer.num_queries + n_bg
     max_matched = mc.max_matched_masks
     bf16 = mc.dtype == "bfloat16"
+    # a ViT backbone's drop path: keep masks drawn before the forward, from the
+    # key JAX gives its "dropout" stream (fold_in(rng, 7)), so that a
+    # checkpointed block recomputes with the same masks
+    draw_drop_masks = getattr(model.detr.detr.backbone[0].backbone, "draw_drop_masks", None)
 
     def loss_fn(batch: TrainBatch, keys: Keys):
         t = batch.targets
@@ -109,6 +116,10 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
                 dn_kwargs.update(maskdino_dn_refs=md_dn.refs_unact,
                                  maskdino_dn_valid=md_dn.slot_valid,
                                  maskdino_attn_mask=md_dn.attn_mask)
+        if draw_drop_masks is not None:
+            drop = draw_drop_masks(keys.fold_in(7), batch.images.shape[0])
+            if drop is not None:
+                dn_kwargs["drop_path_masks"] = drop
         dev_type = batch.images.device.type
         amp = (torch.autocast(dev_type, dtype=torch.bfloat16) if bf16
                else contextlib.nullcontext())

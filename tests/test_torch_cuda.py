@@ -14,6 +14,12 @@ Inputs are made with numpy from a seed. Tolerances:
     with the output: |diff| <= 2^-6 max|plain| (2-4 bf16 ulps of the largest
     output), and a relative norm error <= 1e-2, which a scale error or a
     dropped 128-key tile would exceed.
+  * K-A's logsumexp: both take f32 logits of the same bf16 inputs; the
+    kernel sums exp2 in another order: 1e-4 absolute (the values are ~8).
+  * K-E (``chip_smoke.check_vit_attention_bwd``) against
+    ``vit_attention_bwd_plain``: relative norm 1e-2 for dq and dk (the kernel
+    rounds dS to bf16 for its products, the plain version keeps f32), 2e-3
+    for dv, d rel_h and d rel_w (summation order and one output rounding).
   * K-B (``chip_smoke.check_msda``, the limits chip_smoke.py holds it to):
     both read the same values and sample in f32; they differ only in
     summation order: 1e-5 in f32. In bf16 each side then rounds its output
@@ -38,7 +44,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_msda, check_msda_bwd, local_locations
+from chip_smoke import check_msda, check_msda_bwd, check_vit_attention_bwd, local_locations
 from hipie_torch import kernels
 from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAIRS, TABLE_CHUNK,
                                             _launch, backward_plan, kernel_constants,
@@ -46,7 +52,9 @@ from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAI
                                             ms_deform_attn_backward,
                                             ms_deform_attn_backward_plain, ms_deform_attn_plain)
 from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
-from hipie_torch.ops.vit_attention import vit_attention_plain, vit_global_attention
+from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_plain,
+                                           vit_attention_forward, vit_attention_logits,
+                                           vit_attention_plain, vit_global_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -96,6 +104,111 @@ def test_vit_attention_kernel_rejects_f32(dev):
     q, k, v, rh, rw = (t.float() for t in _vit_inputs(1, 4, 4, 16, 1, dev))
     with pytest.raises(ValueError):
         vit_global_attention(q, k, v, rh, rw, 0.25)
+
+
+@pytest.mark.parametrize("bh,kh,kw,hd", [(2, 4, 4, 16), (3, 9, 7, 80), (2, 12, 12, 64),
+                                         (16, 64, 64, 80), (2, 3, 64, 80),
+                                         (32, 64, 64, 80)])   # ViT-H training, batch 2
+def test_vit_attention_lse_matches_logsumexp(dev, bh, kh, kw, hd):
+    q, k, v, rh, rw = _vit_inputs(bh, kh, kw, hd, 2, dev)
+    scale = hd ** -0.5
+    out, lse = vit_attention_forward(q, k, v, rh, rw, scale)
+    want = torch.logsumexp(vit_attention_logits(q, k, rh, rw, scale), -1)
+    torch.cuda.synchronize()
+    assert lse.dtype == torch.float32 and lse.shape == (bh, kh * kw)
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+    assert torch.equal(out, vit_global_attention(q, k, v, rh, rw, scale))
+
+
+@pytest.mark.parametrize("bh,kh,kw,hd", [
+    (2, 4, 4, 16), (3, 9, 7, 80), (2, 12, 12, 64),
+    (32, 64, 64, 80),           # ViT-H training, batch 2: the Kw = 64 path
+    (16, 64, 64, 64),           # hd 64
+    (2, 3, 64, 80),             # Kw = 64, N = 192
+    (2, 20, 20, 80),            # N = 400: a partial last 64-row tile
+    (1, 32, 48, 80),            # Kh != Kw
+    (1, 5, 9, 16),              # odd widths: rel rows copied element by element
+])
+def test_vit_attention_backward_matches_plain(dev, bh, kh, kw, hd):
+    q, k, v, rh, rw = _vit_inputs(bh, kh, kw, hd, 3, dev)
+    dout = _vit_inputs(bh, kh, kw, hd, 4, dev)[0]
+    scale = hd ** -0.5
+    out, lse = vit_attention_forward(q, k, v, rh, rw, scale)
+    before = kernels.LAUNCHES["vit_attention_bwd"]
+    got = vit_attention_backward(q, k, v, rh, rw, out, lse, dout, scale)
+    assert kernels.LAUNCHES["vit_attention_bwd"] == before + 1
+    want = vit_attention_bwd_plain(q, k, v, rh, rw, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    check_vit_attention_bwd(f"vit_attention_bwd {bh, kh, kw, hd}", got, want)
+
+
+def test_vit_attention_backward_rejects_what_it_does_not_take(dev):
+    q, k, v, rh, rw = _vit_inputs(1, 4, 4, 16, 5, dev)
+    out, lse = vit_attention_forward(q, k, v, rh, rw, 0.25)
+    with pytest.raises(ValueError):
+        vit_attention_backward(q, k, v, rh, rw, out, lse.bfloat16(), q, 0.25)
+    with pytest.raises(ValueError):
+        vit_attention_backward(q, k, v, rh, rw, out, lse, q.float(), 0.25)
+    q, k, v, rh, rw = _vit_inputs(1, 4, 4, 32, 5, dev)
+    with pytest.raises(ValueError):
+        vit_attention_backward(q, k, v, rh, rw, q, lse, q, 0.25)
+
+
+def _global_block(dev):
+    """A ViT-H-like global block at a small width: 4 heads of 80, 32x32 tokens
+    (N = 1024, the least JAX's condition takes the kernel at), f32 weights."""
+    from hipie_torch.models.backbone.vit import ViTBlock
+
+    torch.manual_seed(0)
+    blk = ViTBlock(320, 4, input_size=(32, 32)).to(dev)
+    for p in blk.parameters():
+        torch.nn.init.normal_(p, std=0.05)
+    x = torch.randn(1, 32, 32, 320, device=dev)
+    return blk, x
+
+
+def test_vit_block_under_grad_launches_ka_and_ke(dev):
+    """Under bf16 autocast (the train step's), a global block takes K-A with a
+    grad_fn, and its backward launches K-E once; every parameter of the
+    attention gets a gradient, close to the plain path's (f32 model, no
+    kernel)."""
+    blk, x = _global_block(dev)
+    kernels.reset_launch_counts()
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        y = blk(x.requires_grad_())
+    assert y.grad_fn is not None
+    assert kernels.LAUNCHES["vit_attention"] == 1 and kernels.LAUNCHES["vit_attention_bwd"] == 0
+    y.float().square().mean().backward()
+    assert kernels.LAUNCHES["vit_attention"] == 1 and kernels.LAUNCHES["vit_attention_bwd"] == 1
+    got = {n: p.grad.clone() for n, p in blk.named_parameters()}
+    blk.zero_grad()
+    kernels.reset_launch_counts()
+    blk(x).square().mean().backward()               # f32: the plain path
+    assert sum(kernels.LAUNCHES.values()) == 0
+    for name, p in blk.named_parameters():
+        if name.startswith("attn."):
+            g, w = got[name].float(), p.grad.float()
+            assert g.abs().max() > 0, name
+            # bf16 compute against f32 through the whole block
+            assert ((g - w).norm() / w.norm()).item() <= 5e-2, name
+
+
+def test_vit_dispatch_under_autocast_reaches_ka(dev):
+    """The train step's autocast makes LayerNorm's output f32 but the qkv
+    projection's bf16: the dispatch keys on the latter, so the global block
+    takes K-A; at N < 1024 it does not, as in JAX."""
+    from hipie_torch.models.backbone.vit import ViTBlock
+
+    blk, x = _global_block(dev)
+    kernels.reset_launch_counts()
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        assert blk.norm1(x).dtype == torch.float32
+        blk(x)
+    assert kernels.LAUNCHES["vit_attention"] == 1
+    small = ViTBlock(320, 4, input_size=(16, 16)).to(dev)
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        small(torch.randn(1, 16, 16, 320, device=dev))
+    assert kernels.LAUNCHES["vit_attention"] == 1
 
 
 def _msda_inputs(b, q, m, d, shapes, p, seed, dev, dtype, locations="uniform"):

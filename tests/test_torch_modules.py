@@ -66,11 +66,17 @@ def test_msdeformattn_matches_jax(ref_dim):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
+def _image_1024():
+    return np.random.RandomState(2).randn(1, 512, 512, 3).astype(np.float32)
+
+
 @pytest.fixture(scope="module")
 def vit_pair():
     """Narrow ViTDet: 4 blocks (0, 1, 3 windowed at 4, block 2 global), 8x8 tokens.
     img_size 256 makes the global block's rel-pos tables (31 rows) resize to 15,
-    and the 14x14 pretrain pos embed resizes bicubically to 8x8."""
+    and the 14x14 pretrain pos embed resizes bicubically to 8x8. want["res4_1024"]
+    is the res4 map of a 512x512 image: 32x32 = 1024 tokens, where JAX's
+    global block takes its kernel in bf16."""
     from hipie_tpu.models.backbone.vit import ViTDet as JViT
 
     kw = dict(img_size=256, patch_size=16, embed_dim=64, depth=4, num_heads=4, window_size=4)
@@ -78,6 +84,7 @@ def vit_pair():
     jm = JViT(**kw)
     params = _randomize(jm.init(jax.random.PRNGKey(0), img)["params"], seed=1)
     want = {k: np.asarray(v) for k, v in jm.apply({"params": params}, img).items()}
+    want["res4_1024"] = np.asarray(jm.apply({"params": params}, _image_1024())["res4"])
     sd = {}
     ex.inv_vit(params, "", sd)
     return kw, img, sd, want
@@ -100,8 +107,9 @@ def test_vitdet_matches_jax(vit_pair):
 
 def test_vitdet_bf16_global_block_through_wrapper(vit_pair, monkeypatch):
     """bf16 sends the global block through vit_global_attention (its plain
-    version on the CPU). Against the f32 JAX output, bf16 rounding over 4 blocks
-    stays within 5% of the output scale."""
+    version on the CPU) where JAX takes its kernel: 1024 tokens (a 512x512
+    image), not the 64 of the 128x128 one. Against the f32 JAX output, bf16
+    rounding over 4 blocks stays within 5% of the output scale."""
     from hipie_torch.models.backbone import vit as tvit
 
     calls = []
@@ -112,10 +120,12 @@ def test_vitdet_bf16_global_block_through_wrapper(vit_pair, monkeypatch):
     _load(tm, sd)
     tm.to(torch.bfloat16)
     with torch.no_grad():
-        got = tm(torch.from_numpy(img))["res4"].float().numpy()
+        tm(torch.from_numpy(img))
+        assert calls == []                   # N = 64 < 1024: the plain block, as in JAX
+        got = tm(torch.from_numpy(_image_1024()))["res4"].float().numpy()
     assert calls == [1]
-    scale = np.abs(want["res4"]).max()
-    np.testing.assert_allclose(got, want["res4"], rtol=0, atol=5e-2 * scale)
+    scale = np.abs(want["res4_1024"]).max()
+    np.testing.assert_allclose(got, want["res4_1024"], rtol=0, atol=5e-2 * scale)
 
 
 def test_resize_abs_pos_matches_jax_bicubic():

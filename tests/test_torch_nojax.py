@@ -117,6 +117,34 @@ print("NOJAX_OK")
 """
 
 
+# One training step of a narrow ViT with drop path and activation checkpointing
+# (backbone and transformer), on the CPU.
+TRAIN_VIT = BLOCK_JAX_PACKAGE + r"""
+import dataclasses, tempfile
+import torch
+from hipie_torch.config import apply_overrides, tiny_test_config
+from hipie_torch.models.backbone.vit import VIT_VARIANTS
+from hipie_torch.train.step import create_train_state, make_train_step
+from hipie_torch.train.synthetic import train_batches
+from hipie_torch.utils.rng import GeneratorKeys
+
+VIT_VARIANTS["vit_narrow"] = (64, 4, 4, 0.5)
+cfg = apply_overrides(tiny_test_config(), {
+    "model.backbone.name": "vit_narrow", "model.backbone.vit_img_size": 128,
+    "model.backbone.vit_window_size": 4, "model.still_cls_for_encoder": True,
+    "model.backbone.vit_remat": True, "model.transformer.remat": True})
+cfg = dataclasses.replace(cfg, output_dir=tempfile.mkdtemp())
+state = create_train_state(cfg, seed=0, device="cpu")
+step = make_train_step(cfg, state, device="cpu")
+batch = train_batches(cfg, 1, 0, img=128, slots=6, batch=2)[0]
+state, metrics = step(state, batch, GeneratorKeys(torch.Generator().manual_seed(0)))
+assert state.step == 1 and torch.isfinite(metrics["total_loss"])
+assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
+            or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
+print("NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -140,6 +168,10 @@ def test_predictor_runs_without_jax():
 
 def test_training_runs_without_jax():
     _run_without_jax(TRAIN)
+
+
+def test_vit_training_runs_without_jax():
+    _run_without_jax(TRAIN_VIT)
 
 
 def _port_sources():
