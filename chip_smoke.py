@@ -21,7 +21,8 @@ prints no result line):
     them); K-A at VIT_CASES (a request's shape and the ViT-H train step's),
     with and without its logsumexp output (against torch.logsumexp); K-E (the backward
     of K-A) at VIT_BWD_CASES against vit_attention_bwd_plain
-    (check_vit_attention_bwd); and the
+    (check_vit_attention_bwd), naming the design (wgmma or mma.sync) the C
+    entry point took at each; and the
     ``flat4`` MSDA formulation (K-C) against the fused one (K-B) at the R50
     encoder shape. K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform
     and local locations), decoders and MaskDINO decoders in bf16, the R50 ones
@@ -68,7 +69,8 @@ prints no result line):
     recomputation, K-E 24, K-B 33, K-D 21), and every global block whose
     attention branch the last step kept has nonzero qkv and rel-pos gradients.
     K-A's and K-E's counts are also held to the 24 global blocks ViT-H has,
-    counted without the model's dispatch predicate.
+    counted without the model's dispatch predicate, and every K-E launch must
+    take the wgmma design.
 Every shape at which phases 5 and 8 launched K-A, every shape at which phases
 5 to 8 launched K-B, every shape at which phases 7 and 8 launched K-D, and
 every shape at which phase 8 launched K-E must be one that phase 3 checked.
@@ -155,10 +157,12 @@ VIT_CASES = (
     ("train", 32, 64, 64, 80),
 )
 # K-E's cases (name, BH, Kh, Kw, hd), bf16: the ViT-H training shape (batch 2:
-# BH = 32, N = 4096, hd 80, the Kw = 64 path), one image, ViT-L's head dim 64,
-# Kh = Kw = 40 (the per-element bias path), a partial last 64-row tile (N =
-# 400) and Kh != Kw. main() fails if the ViT-H train phase launches K-E at a
-# shape not here.
+# BH = 32, N = 4096, hd 80), one image, ViT-L's head dim 64 (these three take
+# the wgmma design: Kw = 64, hd 64 or 80, N a multiple of 128), then Kh = Kw =
+# 40 (the per-element bias path), a partial last 64-row tile (N = 400) and Kh
+# != Kw (these take the mma.sync design). The record names the design each
+# case took. main() fails if the ViT-H train phase launches K-E at a shape not
+# here, or at one the wgmma design does not take.
 VIT_BWD_CASES = (
     ("train", 32, 64, 64, 80),
     ("one_image", 16, 64, 64, 80),
@@ -494,8 +498,8 @@ def _check_vit_attention_bwd(dev, card):
     backward with the bias prebuilt as a bf16 mask that requires grad, plus the
     two reductions of the mask's gradient to d rel_h and d rel_w. Returns the
     record and the cases."""
-    from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_plain,
-                                               vit_attention_plain)
+    from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_design,
+                                               vit_attention_bwd_plain, vit_attention_plain)
 
     cases = []
     for i, (name, bh, kh, kw, hd) in enumerate(VIT_BWD_CASES):
@@ -513,11 +517,13 @@ def _check_vit_attention_bwd(dev, card):
         bnd = bound(5 * 2.0 * bh * n * n * hd, nbytes(*args) + nbytes(*got), PEAK_BF16_TENSOR,
                     "tensor cores")
         c = {"case": name, "bh": bh, "n": n, "hd": hd, "kh": kh, "kw": kw, "ms": ms,
+             "design": vit_attention_bwd_design(n, hd, kh, kw),
              "rel_err": {k_: e[0] for k_, e in zip(("dq", "dk", "dv", "drel_h", "drel_w"), errs)},
              "max_abs_err": max(e[2] for e in errs), "bound_ms": bnd["bound_ms"],
              "shape": vit_shape(q, rh, rw)}
-        line = (f"[kernels] vit_attention_bwd {name} BH={bh} N={n} hd={hd} Kh={kh} Kw={kw} bf16: "
-                f"relative norm err dq/dk/dv/drel_h/drel_w {[f'{e[0]:.2e}' for e in errs]} (tol "
+        line = (f"[kernels] vit_attention_bwd {name} BH={bh} N={n} hd={hd} Kh={kh} Kw={kw} bf16, "
+                f"{c['design']} design: relative norm err dq/dk/dv/drel_h/drel_w "
+                f"{[f'{e[0]:.2e}' for e in errs]} (tol "
                 f"{[e[1] for e in errs]}), kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
                 f"({bnd['bound_unit']}: {bnd['bound_flops'] / 1e9:.1f} GFLOP, "
                 f"{bnd['bound_bytes'] / 1e6:.1f} MB), at {100 * bnd['bound_ms'] / ms:.1f}%")
@@ -565,8 +571,8 @@ def _check_vit_attention_bwd(dev, card):
               **train_bound, "library_ms": train["library_ms"],
               "library_call": "scaled_dot_product_attention backward (bf16 mask with grad) + "
                               "two sums of the mask gradient",
-              "shapes": {c["case"]: {k: c[k] for k in ("bh", "n", "hd", "kh", "kw", "ms",
-                                                       "bound_ms", "rel_err")}
+              "shapes": {c["case"]: {k: c[k] for k in ("bh", "n", "hd", "kh", "kw", "design",
+                                                       "ms", "bound_ms", "rel_err")}
                          for c in cases}}
     return record, cases
 
@@ -1463,6 +1469,13 @@ def main() -> int:
                                      + vit_kb if s])
     check_coverage("K-D", bwd_cases, train_kd + vit_kd)
     check_coverage("K-E", vit_bwd_cases, vit_ke)
+    # every K-E launch of the ViT-H step on the wgmma design
+    from hipie_torch.ops.vit_attention import vit_attention_bwd_design
+
+    ke_designs = {vit_attention_bwd_design(n, hd, kh, kw) for _, n, hd, kh, kw, _ in vit_ke}
+    if ke_designs != {"wgmma"}:
+        raise AssertionError(f"the ViT-H train step launched K-E on the designs {ke_designs}, "
+                             f"expected only the wgmma one")
     launches["ms_deform_attn_bwd"] = train["launches"]["ms_deform_attn_bwd"]
     launches["vit_attention_bwd"] = vit_train["launches"]["vit_attention_bwd"]
     for r in records:
@@ -1485,6 +1498,7 @@ def main() -> int:
     ke["vit_huge_train_ms_per_step"] = vit_train["ms_per_step"]
     ke["vit_huge_train_peak_gib"] = vit_train["peak_gib"]
     ke["vit_huge_train_syncs"] = vit_train["syncs"]
+    ke["vit_huge_train_designs"] = sorted(ke_designs)
     kb["launches_per_request_by_case"] = {
         c["case"]: kb_per_request[c["shape"]] for c in msda_cases
         if c["locations"] == "uniform" and c["shape"] in kb_per_request}

@@ -8,10 +8,10 @@ started together, then one link:
          -Xptxas -v -c -o <name>.o hipie_torch/csrc/<name>.cu        # each source
     nvcc -shared -o hipie_torch/_build/<hash>/libhipie_kernels.so *.o
 
-The output directory is keyed by a hash of the sources and the flags, so an
-edited kernel rebuilds and an unchanged one loads at once. Nothing here runs at
-import time: ``load()`` is called by the kernel wrappers when a CUDA tensor
-reaches them.
+The output directory is keyed by a hash of the sources, the headers they
+include (``*.cuh``) and the flags, so an edited kernel or header rebuilds and
+an unchanged build loads at once. Nothing here runs at import time: ``load()``
+is called by the kernel wrappers when a CUDA tensor reaches them.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ _SIGNATURES = {
     "hipie_vit_attention": [_vp, _vp, _vp, _vp, _vp, _vp, _vp,
                             _int, _int, _int, _int, _int, ctypes.c_float, _vp],
     "hipie_vit_attention_bwd": [_vp] * 14 + [_int, _int, _int, _int, _int, ctypes.c_float, _vp],
+    "hipie_vit_attention_bwd_design": [_int, _int, _int, _int],
     "hipie_ms_deform_attn": [_vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int,
                              _int, _int, _int, _int, _int, _int, _vp],
     "hipie_ms_deform_attn_constants": [_vp],
@@ -67,6 +68,11 @@ def _sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
+def _hashed():
+    """Every file a build reads: the sources and the headers they include."""
+    return sorted([*CSRC_DIR.glob("*.cu"), *CSRC_DIR.glob("*.cuh")])
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -84,7 +90,7 @@ def build() -> BuildInfo:
     if _info is not None:
         return _info
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _hashed():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_DIR / h.hexdigest()[:16]

@@ -6,8 +6,10 @@ its autograd) and a CUDA tensor to the hand-written Hopper kernels: K-A
 (``hipie_torch/csrc/vit_attention.cu``: TMA loads, wgmma, online softmax in
 registers) forward and, when an input requires grad, ``ViTAttentionFunction``,
 whose forward also has K-A write the per-row logsumexp and whose backward is
-K-E (``hipie_torch/csrc/vit_attention_bwd.cu``). There is no fallback between
-the two: on a CUDA tensor a kernel launches or the call raises.
+K-E (``hipie_torch/csrc/vit_attention_bwd.cu``: a wgmma + TMA design at the
+training shapes, mma.sync passes elsewhere, chosen by shape in C). There
+is no fallback between the two: on a CUDA tensor a kernel launches or the call
+raises.
 """
 
 from __future__ import annotations
@@ -137,7 +139,8 @@ def vit_attention_backward(q, k, v, rel_h, rel_w, out, lse, dout, scale: float):
     lib = build.load()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     drel_h, drel_w = torch.empty_like(rel_h), torch.empty_like(rel_w)
-    dvec = torch.empty(bh, n, device=q.device, dtype=torch.float32)   # D, between the passes
+    # scratch between the passes: D (BH, N), then the folded bias table (BH, Kh, N)
+    dvec = torch.empty(bh * n * (1 + rel_h.shape[-1]), device=q.device, dtype=torch.float32)
     err = lib.hipie_vit_attention_bwd(
         *(t.data_ptr() for t in (q, k, v, rel_h, rel_w, out, lse, dout, dq, dk, dv, drel_h,
                                  drel_w, dvec)),
@@ -145,6 +148,15 @@ def vit_attention_backward(q, k, v, rel_h, rel_w, out, lse, dout, scale: float):
     build.check(err, "vit_attention_backward")
     kernels.LAUNCHES["vit_attention_bwd"] += 1
     return dq, dk, dv, drel_h, drel_w
+
+
+def vit_attention_bwd_design(n: int, hd: int, kh: int, kw: int) -> str:
+    """The design K-E's C entry point takes at a shape: "wgmma" (Kw = 64, hd 64
+    or 80, N a multiple of 128: every ViT-H and ViT-L training call) or
+    "mma.sync" (every other shape). Builds the kernels if needed."""
+    from hipie_torch.kernels import build
+
+    return "wgmma" if build.load().hipie_vit_attention_bwd_design(n, hd, kh, kw) else "mma.sync"
 
 
 class ViTAttentionFunction(torch.autograd.Function):

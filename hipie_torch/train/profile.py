@@ -122,13 +122,20 @@ def profile_step(dev, card, steps: int, seed: int, preset: str = "r50"):
         raise SystemExit("profile: the profiler recorded no device time")
     per_kernel = sorted(((n, ms, c) for n, (ms, c) in by_name.items()), key=lambda r: -r[1])
     busy = sum(ms for _, ms, _ in per_kernel)
-    # device kernels by the hand-written kernels' names (K-E is two: dq_kernel, dkv_kernel)
+    # device kernels by the hand-written kernels' names (K-E is two a launch:
+    # bwd_q_wgmma and bwd_kv_wgmma at the training shapes, dq_kernel and
+    # dkv_kernel at the others)
     kernel_names = {"vit_attention": ("vit_attention_kernel",),
-                    "vit_attention_bwd": ("dq_kernel", "dkv_kernel"),
+                    "vit_attention_bwd": ("bwd_q_wgmma", "bwd_kv_wgmma", "dq_kernel",
+                                          "dkv_kernel"),
                     "ms_deform_attn": ("ms_deform_attn_kernel",),
                     "ms_deform_attn_bwd": ("ms_deform_attn_bwd_kernel",)}
     own = {name: [sum(r[i] for r in per_kernel if any(k in r[0] for k in keys)) for i in (1, 2)]
            for name, keys in kernel_names.items()}
+    for name, (_, count) in own.items():
+        if launches[name] and not count:
+            raise SystemExit(f"profile: {name} launched {launches[name]} times, but the trace "
+                             f"holds none of its device kernels {kernel_names[name]}")
     plain_mean = float(np.mean(plain_ms))
     print(f"{preset} train step, card {card}: {WARMUP} warm-up steps; ms per step "
           f"{[round(t, 1) for t in plain_ms]}, mean {plain_mean:.1f}; peak memory {peak:.2f} GiB; "

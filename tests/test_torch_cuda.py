@@ -52,7 +52,8 @@ from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAI
                                             ms_deform_attn_backward,
                                             ms_deform_attn_backward_plain, ms_deform_attn_plain)
 from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
-from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_plain,
+from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_design,
+                                           vit_attention_bwd_plain,
                                            vit_attention_forward, vit_attention_logits,
                                            vit_attention_plain, vit_global_attention)
 
@@ -140,6 +141,32 @@ def test_vit_attention_backward_matches_plain(dev, bh, kh, kw, hd):
     want = vit_attention_bwd_plain(q, k, v, rh, rw, out, lse, dout, scale)
     torch.cuda.synchronize()
     check_vit_attention_bwd(f"vit_attention_bwd {bh, kh, kw, hd}", got, want)
+
+
+@pytest.mark.parametrize("bh,kh,kw,hd", [
+    (32, 64, 64, 80),           # ViT-H training, batch 2
+    (32, 64, 64, 64),           # ViT-L's head dim
+    (2, 2, 64, 80),             # N = 128: one block of 128 rows, two key rows
+    (3, 6, 64, 64),             # N = 384
+])
+def test_vit_attention_backward_wgmma_design_matches_plain(dev, bh, kh, kw, hd):
+    """The training shapes' class (Kw = 64, hd 64 or 80, N a multiple of 128)
+    takes the wgmma design; held to the plain version at the same limits."""
+    assert vit_attention_bwd_design(kh * kw, hd, kh, kw) == "wgmma"
+    q, k, v, rh, rw = _vit_inputs(bh, kh, kw, hd, 6, dev)
+    dout = _vit_inputs(bh, kh, kw, hd, 7, dev)[0]
+    scale = hd ** -0.5
+    out, lse = vit_attention_forward(q, k, v, rh, rw, scale)
+    got = vit_attention_backward(q, k, v, rh, rw, out, lse, dout, scale)
+    want = vit_attention_bwd_plain(q, k, v, rh, rw, out, lse, dout, scale)
+    torch.cuda.synchronize()
+    check_vit_attention_bwd(f"vit_attention_bwd wgmma {bh, kh, kw, hd}", got, want)
+
+
+@pytest.mark.parametrize("kh,kw,hd", [(40, 40, 80), (20, 20, 80), (32, 48, 80), (3, 64, 80),
+                                      (64, 64, 16)])
+def test_vit_attention_backward_design_outside_the_class_is_mma_sync(dev, kh, kw, hd):
+    assert vit_attention_bwd_design(kh * kw, hd, kh, kw) == "mma.sync"
 
 
 def test_vit_attention_backward_rejects_what_it_does_not_take(dev):

@@ -1,9 +1,11 @@
-"""CPU emulation of kernel K-E's tile algorithm (hipie_torch/csrc/vit_attention_bwd.cu).
+"""CPU emulation of kernel K-E's tile algorithms (hipie_torch/csrc/vit_attention_bwd.cu).
 
-The CUDA kernel cannot run here, so this module replays its two passes in
-numpy as the kernel tiles them: blocks of 64 rows (4 warps of 16), the other
-side streamed in tiles of 64 rows (rows past N read as zeros) and consumed 16
-at a time; P recomputed as exp2 of the logits in log2(e) units less lse; keys
+The CUDA kernels cannot run here, so this module replays both of K-E's designs
+in numpy as the kernels tile the work. The wgmma design (the training shapes:
+Kw = 64, hd 64 or 80, N a multiple of 128) is replayed by ``emulate_wgmma``
+below its own section header. The mma.sync design (every other shape): blocks
+of 64 rows (4 warps of 16), the other side streamed in tiles of 64 rows (rows
+past N read as zeros) and consumed 16 at a time; P recomputed as exp2 of the logits in log2(e) units less lse; keys
 (query-major pass) or queries (key-major pass) past N masked; the Kw = 64 path,
 where a key tile is one key row (d rel_h its row sum, d rel_w accumulated
 across tiles) and the per-element path (adds into d rel_h and d rel_w rows);
@@ -13,7 +15,7 @@ ldmatrix addresses it forms give mma.m16n8k16's A and B fragments, two
 neighbouring accumulator tiles are one A fragment, and the shared rows of HD +
 8 bf16 keep every 8-row ldmatrix phase free of bank conflicts.
 
-The emulation is held against ``vit_attention_bwd_plain`` and the JAX
+Each emulation is held against ``vit_attention_bwd_plain`` and the JAX
 package's VJP (``_bwd_rule``) in f32 to 1e-5 (summation order, exp2 vs exp),
 and with bf16 rounding against the plain version on the same bf16 inputs to
 the card's limits (chip_smoke.check_vit_attention_bwd: dq, dk 1e-2; dv, d
@@ -278,3 +280,293 @@ def test_shared_rows_free_of_bank_conflicts(hd):
                 banks = {((row * stride + 2 * col) // 4) % 32 // 4
                          for row, col in starts[8 * m:8 * m + 8]}
                 assert len(banks) == 8
+
+
+# ---- the wgmma design (Kw = 64, hd 64 or 80, N a multiple of 128) ----
+#
+# A block covers 128 own rows as two warpgroups of 64 (4 warps of 16 rows);
+# the other side streams in 64-row tiles, each one key row of the key grid.
+# Each warpgroup's products are wgmma m64n64 (S, dP and their transposes) and
+# m64nHD (dq, dk, dv with the accumulators as the register A operand); the
+# emulation keeps every accumulator as 128 threads x 32 registers and moves it
+# only through the fragment maps below.
+
+OWN_ROWS = 128
+STREAM_ROWS = 64
+
+
+def wg_acc_map():
+    """Accumulator fragment of wgmma m64n64 (f32): (row, col) of register e
+    of thread 32 w + l (w: the warp in the warpgroup, g = l / 4, t = l % 4):
+    row 16 w + g + 8 i, column 8 j + 2 t + c for e = 4 j + 2 i + c."""
+    thr, e = np.meshgrid(np.arange(128), np.arange(32), indexing="ij")
+    w, lane = thr // 32, thr % 32
+    g, t = lane // 4, lane % 4
+    j, i, c = e // 4, (e // 2) % 2, e % 2
+    return 16 * w + g + 8 * i, 8 * j + 2 * t + c
+
+
+def wg_a_map():
+    """wgmma's register A operand (m64 x k16, bf16 pairs): (row, col) of the
+    two halves h of register 4 s + r of thread 32 w + l in k16 step s (the
+    columns of the whole 64-wide operand): row 16 w + g + 8 (r % 2), column
+    16 s + 8 (r / 2) + 2 t + h."""
+    thr, reg, h = np.meshgrid(np.arange(128), np.arange(16), np.arange(2), indexing="ij")
+    w, lane = thr // 32, thr % 32
+    g, t = lane // 4, lane % 4
+    s, r = reg // 4, reg % 4
+    return 16 * w + g + 8 * (r % 2), 16 * s + 8 * (r // 2) + 2 * t + h
+
+
+def to_a(regs):
+    """The kernel's to_a: register r of the A operand packs accumulator
+    registers 2 r and 2 r + 1 (the lower half first)."""
+    return regs.reshape(regs.shape[0], 16, 2)
+
+
+def swizzle128(row, chunk):
+    """TMA's 128-byte swizzle of 128-byte rows (1024-byte aligned tile): the
+    16-byte chunk c of row r lands at chunk c ^ (r % 8)."""
+    return chunk ^ (row % 8)
+
+
+def rel_w_smem(tile):
+    """The staged rel_w tile (64 queries x 64 bf16 = 128-byte rows) as TMA
+    writes it with the 128-byte swizzle: an (64, 8, 8) array [row][physical
+    chunk][element]."""
+    img = np.zeros((STREAM_ROWS, 8, 8), tile.dtype)
+    for r in range(STREAM_ROWS):
+        for c in range(8):
+            img[r, swizzle128(r, c)] = tile[r, 8 * c:8 * c + 8]
+    return img
+
+
+def ldsm_x4_trans(img, rows, chunks):
+    """ldmatrix.m8n8.x4.trans over the swizzled image: lane l gives row l % 8
+    of matrix l / 8 at (rows[l], physical chunks[l]); thread (g, t) receives
+    element (2 t + h, g) of each 8 x 8 matrix m as register m's half h, that
+    is row 2 t + h of the 8 given rows, element g of that row's 16 bytes."""
+    out = np.zeros((32, 4, 2), img.dtype)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for m in range(4):
+            for h in range(2):
+                src = 8 * m + 2 * t + h
+                out[lane, m, h] = img[rows[src], chunks[src], g]
+    return out
+
+
+def kv_rel_w_regs(img, w4):
+    """The key-major pass's 16 rel_w registers of each thread of warp w4, as
+    the kernel addresses them: call x, lane l (m = l / 8, r = l % 8) points at
+    query row 8 (2 x + m / 2) + r, logical chunk 2 w4 + m % 2. Returns
+    (32 lanes, 16 registers, 2 halves)."""
+    lanes = np.arange(32)
+    lm, lr = lanes // 8, lanes % 8
+    regs = np.zeros((32, 16, 2), img.dtype)
+    for x in range(4):
+        rows = 16 * x + 8 * (lm // 2) + lr
+        chunks = swizzle128(lr, 2 * w4 + lm % 2)       # rows % 8 == lr
+        regs[:, 4 * x:4 * x + 4] = ldsm_x4_trans(img, rows, chunks)
+    return regs
+
+
+def emulate_wgmma(q, k, v, rel_h, rel_w, out, lse, dout, scale, rnd):
+    """K-E's wgmma design on float32 numpy inputs; ``rnd`` rounds where the
+    kernel rounds to bf16. Returns (dq, dk, dv, drel_h, drel_w)."""
+    bh, n, hd = q.shape
+    kh, kw = rel_h.shape[2], rel_w.shape[2]
+    assert kw == STREAM_ROWS and n % OWN_ROWS == 0
+    f32 = np.float32
+    rows, cols = wg_acc_map()
+    dq, dk, dv = (np.zeros((bh, n, hd), f32) for _ in range(3))
+    drel_h, drel_w = np.zeros((bh, n, kh), f32), np.zeros((bh, n, kw), f32)
+    dvec = np.zeros((bh, n), f32)
+    fold = np.zeros((bh, kh, n), f32)
+    scale_l2 = f32(scale) * LOG2E
+
+    # ---- query-major pass: D, the fold table, dq, d rel_h, d rel_w ----
+    for b in range(bh):
+        for q0 in range(0, n, OWN_ROWS):
+            blk = slice(q0, q0 + OWN_ROWS)
+            dvec[b, blk] = (dout[b, blk] * out[b, blk]).sum(-1)
+            fold[b, :, blk] = ((rel_h[b, blk] - lse[b, blk, None]) * LOG2E).T
+            for wg in range(2):
+                r0 = q0 + 64 * wg
+                own = slice(r0, r0 + 64)
+                nl2 = -lse[b, r0 + rows] * LOG2E                       # (128, 32) by register
+                dd = dvec[b, r0 + rows]
+                rwl = rel_w[b, r0 + rows, cols] * LOG2E                 # the same in every tile
+                dqa = np.zeros((64, hd), f32)
+                dwa = np.zeros((128, 32), f32)
+                dh_s = np.zeros((64, kh), f32)
+                for kt in range(n // STREAM_ROWS):
+                    keys = slice(kt * STREAM_ROWS, (kt + 1) * STREAM_ROWS)
+                    s_m = q[b, own] @ k[b, keys].T                      # wgmma m64n64
+                    dp_m = dout[b, own] @ v[b, keys].T
+                    sacc, pacc = s_m[rows, cols], dp_m[rows, cols]
+                    off = rel_h[b, r0 + rows, kt] * LOG2E + nl2
+                    p = np.exp2(sacc * scale_l2 + (rwl + off))
+                    ds = p * (pacc - dd)
+                    dwa += ds
+                    # d rel_h[q, kt]: the thread's 16 columns of each row, then the quad
+                    part = np.zeros((64,), f32)
+                    np.add.at(part, rows.ravel(), ds.ravel())
+                    dh_s[:, kt] = rnd(part)
+                    a = np.zeros((64, 64), f32)                         # dS as the A operand
+                    ar, ac = wg_a_map()
+                    a[ar, ac] = rnd(to_a(ds))
+                    dqa += a @ k[b, keys]                               # MN-major B: the K tile
+                dq[b, own] = rnd(dqa * f32(scale))
+                drel_h[b, own] = dh_s
+                dwm = np.zeros((64, 64), f32)
+                dwm[rows, cols] = dwa
+                drel_w[b, own] = rnd(dwm)
+
+    # ---- key-major pass: dk and dv, two key rows a block ----
+    for b in range(bh):
+        for k0 in range(0, n, OWN_ROWS):
+            for wg in range(2):
+                r0 = k0 + 64 * wg
+                i_row = r0 // kw                                        # the warpgroup's key row
+                own = slice(r0, r0 + 64)
+                dka, dva = np.zeros((64, hd), f32), np.zeros((64, hd), f32)
+                for qt in range(n // STREAM_ROWS):
+                    qs = slice(qt * STREAM_ROWS, (qt + 1) * STREAM_ROWS)
+                    st_m = k[b, own] @ q[b, qs].T                       # (keys, queries)
+                    dpt_m = v[b, own] @ dout[b, qs].T
+                    sacc, pacc = st_m[rows, cols], dpt_m[rows, cols]
+                    # the stage: the rel_w tile (swizzled), fold rows i_row (by
+                    # warpgroup), D; the bias in the accumulator's layout
+                    img = rel_w_smem(rel_w[b, qs])
+                    fold2 = fold[b, i_row, qs].reshape(32, 2)           # float2 per (8 jn + 2 t) / 2
+                    d2 = dvec[b, qs].reshape(32, 2)
+                    # register e = 4 jn + 2 i + c: rel_w register 2 jn + i, half c;
+                    # the float2 of fold and of D at 4 jn + t, half c
+                    e = np.arange(32)
+                    jn, i, c = e // 4, (e // 2) % 2, e % 2
+                    t = (np.arange(128) % 32 % 4)[:, None]
+                    bias = np.concatenate([kv_rel_w_regs(img, w4)[:, 2 * jn + i, c]
+                                           for w4 in range(4)])
+                    fcol, dcol = fold2[4 * jn + t, c], d2[4 * jn + t, c]
+                    p = np.exp2(sacc * scale_l2 + (bias * LOG2E + fcol))
+                    ds = p * (pacc - dcol)
+                    ar, ac = wg_a_map()
+                    a_p, a_ds = np.zeros((64, 64), f32), np.zeros((64, 64), f32)
+                    a_p[ar, ac] = rnd(to_a(p))
+                    a_ds[ar, ac] = rnd(to_a(ds))
+                    dva += a_p @ dout[b, qs]
+                    dka += a_ds @ q[b, qs]
+                dk[b, own] = rnd(dka * f32(scale))
+                dv[b, own] = rnd(dva)
+    return dq, dk, dv, drel_h, drel_w
+
+
+WGMMA_CASES = [
+    (1, 2, 64, 80),     # N = 128: one block, its two warpgroups on two key rows
+    (1, 4, 64, 64),     # N = 256, hd 64
+    (2, 2, 64, 80),     # two bh
+]
+
+
+@pytest.mark.parametrize("bh,kh,kw,hd", WGMMA_CASES)
+def test_wgmma_emulation_matches_plain_and_jax_f32(bh, kh, kw, hd):
+    q, k, v, rh, rw, g = _inputs(bh, kh, kw, hd, seed=kh + hd, rnd=lambda x: x)
+    scale = hd ** -0.5
+    t = list(map(torch.from_numpy, (q, k, v, rh, rw, g)))
+    out, lse = vit_attention_forward(*t[:5], scale)
+    got = emulate_wgmma(q, k, v, rh, rw, out.numpy(), lse.numpy(), g, scale, lambda x: x)
+    plain = vit_attention_bwd_plain(*t[:5], out, lse, t[5], scale)
+    jax_vjp = K._bwd_rule(scale, tuple(map(jnp.asarray, (q, k, v, rh, rw))), jnp.asarray(g))
+    for name, a, b, c in zip(NAMES, got, plain, jax_vjp):
+        assert a.shape == tuple(b.shape), name
+        assert _rel(a, b.numpy()) <= 1e-5, (name, _rel(a, b.numpy()))
+        assert _rel(a, c) <= 1e-5, (name, _rel(a, c))
+
+
+@pytest.mark.parametrize("bh,kh,kw,hd", WGMMA_CASES[:2])
+def test_wgmma_emulation_with_bf16_rounding_matches_plain(bh, kh, kw, hd):
+    """bf16 inputs and the kernel's roundings, within the card's limits of the
+    plain version (check_vit_attention_bwd: dq, dk 1e-2; the rest 2e-3)."""
+    q, k, v, rh, rw, g = _inputs(bh, kh, kw, hd, seed=5, rnd=bf16)
+    scale = hd ** -0.5
+    t = [torch.from_numpy(x).bfloat16() for x in (q, k, v, rh, rw, g)]
+    out, lse = vit_attention_forward(*t[:5], scale)
+    got = emulate_wgmma(q, k, v, rh, rw, out.float().numpy(), lse.numpy(), g, scale, bf16)
+    want = vit_attention_bwd_plain(*t[:5], out, lse, t[5], scale)
+    for name, a, b in zip(NAMES, got, want):
+        tol = 1e-2 if name in ("dq", "dk") else 2e-3
+        assert _rel(a, b.float().numpy()) <= tol, (name, _rel(a, b.float().numpy()))
+
+
+def test_wgmma_accumulator_is_the_a_operand():
+    """to_a moves no element: the A operand built from the accumulator's
+    registers holds the accumulator's own (row, column) for every thread."""
+    rows, cols = wg_acc_map()
+    ar, ac = wg_a_map()
+    pairs = np.stack([rows, cols], -1).reshape(128, 16, 2, 2)     # to_a of (row, col)
+    assert np.array_equal(pairs[..., 0], ar) and np.array_equal(pairs[..., 1], ac)
+    # the maps cover the 64 x 64 tile once each
+    assert len({(r, c) for r, c in zip(rows.ravel(), cols.ravel())}) == 64 * 64
+
+
+def test_wgmma_a_operand_is_mma_sync_a_fragment_per_warp():
+    """wgmma's register A operand is mma.m16n8k16's A fragment, warp by warp
+    (rows 16 w ..): the same layout the mma.sync design loads by ldmatrix."""
+    ar, ac = wg_a_map()
+    for thr in range(128):
+        w, lane = thr // 32, thr % 32
+        for s in range(4):
+            for r in range(4):
+                want = [(16 * w + row, 16 * s + col) for row, col in a_frag(lane, r)]
+                assert [(ar[thr, 4 * s + r, h], ac[thr, 4 * s + r, h]) for h in range(2)] == want
+
+
+def test_ldmatrix_trans_reads_rel_w_in_the_accumulator_layout():
+    """Under the 128-byte swizzle, the key-major pass's four ldmatrix.x4.trans
+    hand thread (w4, g, t) rel_w[q][j] for exactly the (key j, query q) of
+    its S^T accumulator registers: register 2 jn + i, half c is the bias of
+    register 4 jn + 2 i + c."""
+    tile = np.arange(64 * 64).reshape(64, 64)                     # tile[q][j] = 64 q + j
+    img = rel_w_smem(tile)
+    rows, cols = wg_acc_map()
+    for w4 in range(4):
+        regs = kv_rel_w_regs(img, w4)
+        for lane in range(32):
+            thr = 32 * w4 + lane
+            for jn in range(8):
+                for i in range(2):
+                    for c in range(2):
+                        e = 4 * jn + 2 * i + c
+                        key, query = rows[thr, e], cols[thr, e]
+                        assert regs[lane, 2 * jn + i, c] == tile[query, key]
+
+
+def test_ldmatrix_trans_of_rel_w_is_free_of_bank_conflicts():
+    """Each 8-lane phase of the key-major pass's ldmatrix reads 8 rows of 16
+    bytes at distinct 16-byte bank groups (the swizzle spreads them)."""
+    lanes = np.arange(32)
+    lm, lr = lanes // 8, lanes % 8
+    for w4 in range(4):
+        for x in range(4):
+            rows = 16 * x + 8 * (lm // 2) + lr
+            addr = rows * 128 + (swizzle128(lr, 2 * w4 + lm % 2) << 4)
+            for m in range(4):
+                groups = {(a // 16) % 8 for a in addr[8 * m:8 * m + 8]}
+                assert len(groups) == 8
+
+
+def test_fold_table_and_dvec_layout():
+    """The scratch the wrapper allocates, (BH, 1 + Kh, N) f32, holds D (BH, N)
+    first and the fold table (BH, Kh, N) after it; a key-major stage's TMA box
+    {64 queries, 2 key rows} at (q0, k0 / 64, bh) is fold rows k0 / 64 and
+    k0 / 64 + 1 of the block's two warpgroups."""
+    bh, kh, n = 2, 4, 256
+    scratch = np.arange(bh * n * (1 + kh))
+    d = scratch[:bh * n].reshape(bh, n)
+    fold = scratch[bh * n:].reshape(bh, kh, n)
+    assert d[1, 5] == 1 * n + 5
+    b, k0, q0 = 1, 128, 64
+    box = fold[b, k0 // 64:k0 // 64 + 2, q0:q0 + 64]
+    for wg in range(2):
+        assert box[wg, 0] == bh * n + (b * kh + k0 // 64 + wg) * n + q0
