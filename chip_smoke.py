@@ -31,7 +31,11 @@ prints no result line):
     traffic and rate. K-D (the MSDA backward) runs MSDA_BWD_CASES, every
     training shape in bf16 and f32 (the encoder also with local locations),
     against the plain version's autograd (``check_msda_bwd``), its plain time
-    by CUDA events around eager calls (autograd does not go into a graph).
+    by CUDA events around eager calls (autograd does not go into a graph),
+    naming the design its C entry launched at each ("binned" or "atomics")
+    and, for the binned one, its bins, chunks and global adds as the launch
+    wrote them into its scratch (``bwd_binned_stats``), beside the atomics
+    design's adds.
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
     the same weights run on the CPU through the plain versions, once with
     fused MSDA and once with ``flat4``.
@@ -61,7 +65,9 @@ prints no result line):
     finite gradient and every frozen one none (the optimizer's labels), the
     parameters moved, the lr equal to the schedule, and K-B and K-D launched
     exactly 21 times each a step; it prints the ms per step, peak memory and
-    matcher host syncs per step.
+    matcher host syncs per step. Every encoder-shape K-D launch of phases 7
+    and 8 must take the binned design, and every launch the design the rule
+    names at its shape (``check_kd_designs``).
  8. ViT-H train: the same for vit_huge_coco_panoptic() (full width and depth,
     drop path, activation checkpointing of the ViT blocks and the encoder and
     decoder layers), VIT_TRAIN_STEPS steps: each kernel's launches a step
@@ -138,7 +144,8 @@ MSDA_CASES = (
 )
 # K-D's cases: every shape the training phase launches it at (bf16), each also
 # in f32, and the encoder with local locations; main() fails if the training
-# phase launches K-D at a shape not here.
+# phase launches K-D at a shape not here. The encoder cases take K-D's binned
+# design, the others its atomics design (the C entry's rule).
 MSDA_BWD_CASES = (
     ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
     ("train_encoder_local", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "local"),
@@ -811,10 +818,13 @@ def check_msda_bwd(what, got, want, loc, levels):
 
 def _check_msda_bwd(dev, card):
     """K-D at every case of MSDA_BWD_CASES: held to check_msda_bwd's limits
-    against the plain version's autograd, both timed. Returns the record (the
-    training encoder's bf16 time, bound and plain time, and every case's
-    numbers under "shapes") and the cases."""
-    from hipie_torch.ops.ms_deform_attn import (backward_plan, ms_deform_attn_backward,
+    against the plain version's autograd, both timed, with the design the C
+    entry launched there and, where that is the binned one, its bins, chunks
+    and global adds beside the atomics design's adds. Returns
+    the record (the training encoder's bf16 time, bound and plain time, and
+    every case's numbers under "shapes") and the cases."""
+    from hipie_torch.ops.ms_deform_attn import (_ms_deform_attn_backward_design, backward_plan,
+                                                bwd_binned_stats, ms_deform_attn_backward,
                                                 ms_deform_attn_backward_plain)
 
     cases = []
@@ -822,19 +832,21 @@ def _check_msda_bwd(dev, card):
         value, loc, w = msda_inputs(levels, q, dtype, locations, dev, SEED + 100 + i, b)
         gout = torch.randn((b, q, MSDA_M * MSDA_D), generator=torch.Generator(
             device=dev).manual_seed(SEED + i), device=dev).to(dtype)
-        got = ms_deform_attn_backward(value, levels, loc, w, gout)
+        got, design, scratch = _ms_deform_attn_backward_design(value, levels, loc, w, gout)
         want = ms_deform_attn_backward_plain(value, levels, loc, w, gout)
         torch.cuda.synchronize()
         errs, left_out = check_msda_bwd(f"ms_deform_attn_bwd ({name})", got, want, loc, levels)
+        binned = bwd_binned_stats(scratch) if design == "binned" else {}
         ms = cuda_time_ms(lambda: ms_deform_attn_backward(value, levels, loc, w, gout), 10)
         plain_ms = cuda_time_ms_eager(
             lambda: ms_deform_attn_backward_plain(value, levels, loc, w, gout), 3)
-        # bytes: value, locations, weights and cotangent read once; the f32 value
-        # gradient, the location and weight gradients written once. Operations:
+        # bytes: value, locations, weights and cotangent read once; the value
+        # gradient (in the value's dtype, as the function returns it), the
+        # location and weight gradients written once. Operations:
         # per sample and corner, a D-long dot and a D-long scaled add, in f32.
         samples = loc[..., 0].numel()
         bnd = bound(4.0 * 4 * samples * MSDA_D,
-                    nbytes(value, loc, w, gout) + value.numel() * 4 + nbytes(loc, w),
+                    nbytes(value, loc, w, gout) + nbytes(value) + nbytes(loc, w),
                     PEAK_F32, "f32 cores")
         c = {"case": name, "b": b, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
              "locations": locations, "ms": ms, "plain_ms": plain_ms,
@@ -844,6 +856,7 @@ def _check_msda_bwd(dev, card):
              "loc_left_out": left_out,
              "atomic_adds": samples * 4 * MSDA_D,
              "plan": backward_plan(MSDA_D, value.element_size(), 16),
+             "design": design, **binned,
              "shape": msda_shape(value, levels, loc, w)}
         cases.append(c)
         log(f"[kernels] ms_deform_attn_bwd {name} B={b} Q={q} S={c['s']} M={MSDA_M} "
@@ -852,11 +865,15 @@ def _check_msda_bwd(dev, card):
             f"{[e[1] for e in errs]}; {100 * left_out:.2f}% of locations on the lattice left out), "
             f"kernel {ms:.4f} ms, plain (autograd) {plain_ms:.3f} ms, "
             f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_unit']}, "
-            f"{bnd['bound_bytes'] / 1e6:.1f} MB), {c['atomic_adds'] / 1e6:.1f} M f32 atomic adds "
-            f"at {c['atomic_adds'] / ms / 1e6:.1f} G/s; card {card}")
+            f"{bnd['bound_bytes'] / 1e6:.1f} MB); {design} design"
+            + (f" ({c['n_bins']} bins, {c['n_chunks']} chunks, {c['global_adds'] / 1e6:.1f} M "
+               f"global f32 adds against the atomics design's {c['atomic_adds'] / 1e6:.1f} M)"
+               if design == "binned" else
+               f" ({c['atomic_adds'] / 1e6:.1f} M f32 atomic adds at "
+               f"{c['atomic_adds'] / ms / 1e6:.1f} G/s)") + f"; card {card}")
         if name == "train_encoder":
             enc, b_enc = c, bnd
-        del value, loc, w, gout, got, want
+        del value, loc, w, gout, got, want, scratch
     record = {"name": "ms_deform_attn_bwd", "route": "cuda",
               "source": "hipie_torch/csrc/ms_deform_attn_bwd.cu",
               "replaces": "hipie_tpu/ops/ms_deform_attn.py:884",
@@ -866,9 +883,39 @@ def _check_msda_bwd(dev, card):
                               "version is grid_sample's autograd per level",
               "shapes": {c["case"]: {k: c[k] for k in ("b", "q", "s", "dtype", "locations", "ms",
                                                        "plain_ms", "bound_ms", "rel_err", "tol",
-                                                       "loc_left_out", "plan")}
+                                                       "loc_left_out", "plan", "design",
+                                                       "atomic_adds", "n_bins", "n_chunks",
+                                                       "global_adds") if k in c}
                          for c in cases}}
     return record, cases
+
+
+def check_kd_designs(shapes, counted) -> dict:
+    """K-D's designs in the train phases: every encoder-shape launch (Q = S)
+    must take the binned design, every launch the design the C entry's rule
+    names at its shape, and the launches the wrapper counted by design must
+    be those. Returns launches by (case shape, design)."""
+    from hipie_torch.ops.ms_deform_attn import ms_deform_attn_bwd_design
+
+    by_shape = Counter()
+    for levels, b, q, m, d, dtype in shapes:
+        design = ms_deform_attn_bwd_design(levels, b, m, d, q, MSDA_P)
+        if q == sum(h * w for h, w in levels) and design != "binned":
+            raise AssertionError(f"K-D at the encoder shape {levels, b, q} takes the {design} "
+                                 f"design, not the binned one")
+        by_shape[(f"B={b} Q={q} {dtype}", design)] += 1
+    want = Counter()
+    for (_, design), n in by_shape.items():
+        want[design] += n
+    got = Counter()
+    for c in counted:
+        got.update(c)
+    if +got != +want:
+        raise AssertionError(f"the train phases launched K-D's designs {dict(got)}, the rule "
+                             f"names {dict(want)} at their shapes")
+    log(f"[train] K-D launches by shape and design, both train phases: "
+        f"{ {f'{k[0]} {k[1]}': n for k, n in by_shape.items()} }")
+    return {f"{k[0]} {k[1]}": n for k, n in by_shape.items()}
 
 
 def check_coverage(what, cases, ran) -> None:
@@ -1358,8 +1405,11 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
                              timed=False), \
                 timing_vit_kernel(ka_shapes):
             kernels.reset_launch_counts()
+            for k in msda_ops.BWD_DESIGN_LAUNCHES:
+                msda_ops.BWD_DESIGN_LAUNCHES[k] = 0
             state = trainer.train(max_iter=steps)
             launches = dict(kernels.LAUNCHES)
+            kd_designs = dict(msda_ops.BWD_DESIGN_LAUNCHES)
     finally:
         step_module.apply_weight_dict = weight_fn
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
@@ -1430,7 +1480,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         f"{len(through_ke) // 4} global blocks' attention checked for a nonzero gradient; "
         f"card {card}")
     return ({"launches": launches, "per_step": per_step[-1][0], "ms_per_step": times,
-             "peak_gib": peak, "syncs": syncs}, ka_shapes, kb_shapes, kd_shapes, ke_shapes)
+             "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs}, ka_shapes, kb_shapes,
+            kd_shapes, ke_shapes)
 
 
 def main() -> int:
@@ -1476,6 +1527,7 @@ def main() -> int:
     if ke_designs != {"wgmma"}:
         raise AssertionError(f"the ViT-H train step launched K-E on the designs {ke_designs}, "
                              f"expected only the wgmma one")
+    kd_designs = check_kd_designs(train_kd + vit_kd, [train["kd_designs"], vit_train["kd_designs"]])
     launches["ms_deform_attn_bwd"] = train["launches"]["ms_deform_attn_bwd"]
     launches["vit_attention_bwd"] = vit_train["launches"]["vit_attention_bwd"]
     for r in records:
@@ -1490,6 +1542,7 @@ def main() -> int:
     kd["launches_per_train_step"] = train["per_step"]["ms_deform_attn_bwd"]
     kd["train_ms_per_step"] = train["ms_per_step"]
     kd["train_peak_gib"] = train["peak_gib"]
+    kd["train_designs"] = kd_designs
     for r in records:
         if r["name"] in ("vit_attention", "vit_attention_bwd", "ms_deform_attn",
                          "ms_deform_attn_bwd"):

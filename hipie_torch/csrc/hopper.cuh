@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the attention kernels K-A
-// (vit_attention.cu) and K-E (vit_attention_bwd.cu): mbarriers, TMA loads and
-// tensor maps, named barriers, wgmma shared-memory descriptors and the wgmma
-// instructions they use. Each kernel source includes this header into its own
+// (vit_attention.cu) and K-E (vit_attention_bwd.cu) and the MSDA backward K-D
+// (ms_deform_attn_bwd.cu): mbarriers, TMA loads, reductions and tensor maps,
+// named barriers, wgmma shared-memory descriptors and the wgmma instructions
+// they use. Each kernel source includes this header into its own
 // anonymous namespace; nothing here is exported from the library.
 #pragma once
 
@@ -62,6 +63,48 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map
       "[%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2),
+         "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// Adds a shared-memory box into global memory element by element (the map's
+// element type; each element's add is atomic), skipping elements outside the
+// tensor. Completes through the bulk group: commit, then wait for the read
+// before the shared memory is reused or the block exits.
+__device__ __forceinline__ void tma_reduce_add_5d(const CUtensorMap* map, uint32_t src, int c0,
+                                                  int c1, int c2, int c3, int c4) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.5d.global.shared::cta.add.tile.bulk_group "
+      "[%0, {%2, %3, %4, %5, %6}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+         "r"(c4)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until every committed bulk operation has read its shared memory (a
+// reduce or store may still be writing global memory; the grid's end
+// completes it).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses before later
+// async-proxy (TMA) ones; every writing thread runs it before the barrier
+// after which one thread issues the TMA operation.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void bar_sync(int id, int count) {
@@ -196,7 +239,7 @@ inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
                        CUtensorMapSwizzle swizzle) {
   EncodeTiled encode = encode_fn();
   if (encode == nullptr) return false;
-  const cuuint32_t elem[3] = {1, 1, 1};
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return encode(map, type, rank, const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE)

@@ -45,8 +45,11 @@ _SIGNATURES = {
                              _int, _int, _int, _int, _int, _int, _vp],
     "hipie_ms_deform_attn_constants": [_vp],
     "hipie_msda_reduce": [_vp, _vp, _vp, ctypes.c_longlong, _int, _int, _int, _vp],
-    "hipie_ms_deform_attn_bwd": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int,
-                                 _int, _int, _int, _int, _int, _int, _int, _vp],
+    "hipie_ms_deform_attn_bwd": [_vp] * 9 + [_int] * 10 + [_vp, _int, _vp, ctypes.c_longlong,
+                                                           _vp, _vp],
+    "hipie_ms_deform_attn_bwd_design": [_vp] + [_int] * 7,
+    "hipie_ms_deform_attn_bwd_scratch_bytes": [_vp] + [_int] * 8 + [_vp],
+    "hipie_ms_deform_attn_bwd_constants": [_vp],
 }
 
 

@@ -10,6 +10,10 @@ gradient is ``F.grid_sample``'s autograd) and a CUDA tensor to the hand-written
 kernels: the forward in ``hipie_torch/csrc/ms_deform_attn.cu`` and, where a
 gradient is wanted, the backward in ``hipie_torch/csrc/ms_deform_attn_bwd.cu``
 behind a ``torch.autograd.Function``; there is no fallback between the two.
+The backward has two designs, chosen by shape in its C entry point
+(``ms_deform_attn_bwd_design``): "binned" (samples sorted by destination tile,
+the value gradient accumulated in shared memory) and "atomics" (the value
+gradient added in L2 by atomics).
 ``method="flat4"`` instead runs the JAX package's ``flat4`` formulation, whose
 segment reduce is kernel K-C (``hipie_torch/ops/msda_reduce.py``); in training
 its backward is K-D too, as JAX's ``ms_deform_attn_train`` gives every method
@@ -18,6 +22,7 @@ one backward.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -275,50 +280,190 @@ def ms_deform_attn_backward_plain(value, spatial_shapes: Shapes, sampling_locati
 
 
 def backward_plan(d: int, itemsize: int, align: int) -> Tuple[int, int]:
-    """K-D's (channels a thread owns, threads per pair) for head dim ``d`` of
-    ``itemsize``-byte values whose rows and gradient rows are ``align``-byte
-    aligned: 4 channels where the row allows it, else 1; as many threads as
-    the row has such vectors, a power of two up to 32 (a thread then holds up
-    to 4 vectors)."""
+    """K-D's atomics design: (channels a thread owns, threads per pair) for head
+    dim ``d`` of ``itemsize``-byte values whose rows and gradient rows are
+    ``align``-byte aligned: 4 channels where the row allows it, else 1; as many
+    threads as the row has such vectors, a power of two up to 32 (a thread then
+    holds up to 4 vectors)."""
     vc = 4 if d % 4 == 0 and align % (4 * itemsize) == 0 else 1
     vecs = d // vc
     return vc, min(32, 1 << (vecs - 1).bit_length())
+
+
+# K-D's binned design (csrc/ms_deform_attn_bwd.cu): copies of its constants
+# (kBinThreads, kBinPerThread, kScanThreads, kScatterThreads,
+# kScatterPerThread, kMaxBins, kAccThreads, kChunk, kMaxLevels, kBinD, kTileH,
+# kTileW, kMinSamplesPerBin), for the CPU replay
+# (tests/test_torch_msda_bwd_tiles.py); bwd_constants() reads the built
+# kernel's, and the card tests hold the two equal.
+BWD_BIN_THREADS, BWD_BIN_PER_THREAD, BWD_SCAN_THREADS = 1024, 4, 1024
+BWD_SCATTER_THREADS, BWD_SCATTER_PER_THREAD = 1024, 8
+BWD_MAX_BINS, BWD_ACC_THREADS, BWD_CHUNK, BWD_MAX_LEVELS, BWD_BIN_D = 5120, 256, 4096, 4, 32
+BWD_TILE_H, BWD_TILE_W = 16, 16
+BWD_MIN_SAMPLES_PER_BIN = 1024
+BWD_CONSTANTS = (BWD_BIN_THREADS, BWD_BIN_PER_THREAD, BWD_SCAN_THREADS, BWD_SCATTER_THREADS,
+                 BWD_SCATTER_PER_THREAD, BWD_MAX_BINS, BWD_ACC_THREADS, BWD_CHUNK, BWD_MAX_LEVELS,
+                 BWD_BIN_D, BWD_TILE_H, BWD_TILE_W, BWD_MIN_SAMPLES_PER_BIN)
+BWD_DESIGNS = ("atomics", "binned")     # as the C entry numbers them
+# launches of each design, counted where the wrapper launches K-D
+BWD_DESIGN_LAUNCHES = {name: 0 for name in BWD_DESIGNS}
+
+
+def bwd_constants() -> Tuple[int, ...]:
+    """The built K-D's binned-design constants, in BWD_*'s order. Needs nvcc."""
+    from hipie_torch.kernels import build
+
+    out = torch.zeros(len(BWD_CONSTANTS), dtype=torch.int32)
+    build.check(build.load().hipie_ms_deform_attn_bwd_constants(out.data_ptr()),
+                "ms_deform_attn_bwd constants")
+    return tuple(out.tolist())
+
+
+class BinnedPlan(NamedTuple):
+    """How K-D's binned design lays out a launch: the CPU replay's copy of
+    the C entry's bin_plan."""
+
+    tile_h: int
+    tile_w: int
+    tile_base: Tuple[int, ...]   # a level's first tile within a (b, m); the last: tiles a (b, m)
+    tiles_x: Tuple[int, ...]     # a level's tiles across
+    n_bins: int                  # B * M * tiles
+    samples: int                 # B * Q * M * L * P
+    max_chunks: int              # the accumulate grid: samples // BWD_CHUNK + n_bins
+
+
+def binned_plan(spatial_shapes: Shapes, b: int, m: int, q: int,
+                n_points: int) -> Optional[BinnedPlan]:
+    """K-D's binned layout for these levels and sizes, or None where the
+    design cannot take them (more than BWD_MAX_LEVELS levels or BWD_MAX_BINS
+    bins, or too many samples for int32 indices)."""
+    n_levels = len(spatial_shapes)
+    if not 1 <= n_levels <= BWD_MAX_LEVELS or min(b, m, q, n_points) <= 0:
+        return None
+    samples = b * q * m * n_levels * n_points
+    if samples > (1 << 31) - 2 * BWD_SCATTER_THREADS * BWD_SCATTER_PER_THREAD:
+        return None
+    th, tw = BWD_TILE_H, BWD_TILE_W
+    base, tiles_x, tiles = [], [], 0
+    for h, w in spatial_shapes:
+        if h <= 0 or w <= 0:
+            return None
+        base.append(tiles)
+        tiles_x.append(-(-w // tw))
+        tiles += -(-h // th) * tiles_x[-1]
+    n_bins = b * m * tiles
+    if n_bins > BWD_MAX_BINS:
+        return None
+    return BinnedPlan(th, tw, tuple(base) + (tiles,), tuple(tiles_x), n_bins, samples,
+                      samples // BWD_CHUNK + n_bins)
+
+
+def bwd_design_rule(spatial_shapes: Shapes, b: int, m: int, d: int, q: int, n_points: int,
+                    aligned: bool = True) -> str:
+    """The design K-D's C entry takes (the CPU replay's copy of its rule; the
+    card tests hold the two equal): "binned" for head dim 32 with value and
+    cotangent rows 16-byte aligned where binned_plan takes the shape and its
+    bins get at least BWD_MIN_SAMPLES_PER_BIN samples on average, else
+    "atomics"."""
+    plan = binned_plan(spatial_shapes, b, m, q, n_points) if aligned else None
+    if d != BWD_BIN_D or plan is None or plan.samples < BWD_MIN_SAMPLES_PER_BIN * plan.n_bins:
+        return "atomics"
+    return "binned"
+
+
+_HOST_SHAPES: Dict[Shapes, torch.Tensor] = {}
+
+
+def _host_shapes(spatial_shapes: Shapes) -> torch.Tensor:
+    """(L, 2) int32 (H, W) on the host, cached: what K-D's C entry plans from."""
+    if spatial_shapes not in _HOST_SHAPES:
+        _HOST_SHAPES[spatial_shapes] = torch.tensor(spatial_shapes, dtype=torch.int32).contiguous()
+    return _HOST_SHAPES[spatial_shapes]
+
+
+def ms_deform_attn_bwd_design(spatial_shapes: Shapes, b: int, m: int, d: int, q: int,
+                              n_points: int, aligned: bool = True) -> str:
+    """The design K-D's C entry point takes at a shape ("binned" or
+    "atomics"), from the built library's rule. Builds the kernels if needed."""
+    from hipie_torch.kernels import build
+
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    design = build.load().hipie_ms_deform_attn_bwd_design(
+        _host_shapes(spatial_shapes).data_ptr(), b, m, d, q, len(spatial_shapes), n_points,
+        int(aligned))
+    return BWD_DESIGNS[design]
 
 
 def ms_deform_attn_backward(value, spatial_shapes: Shapes, sampling_locations,
                             attention_weights, grad_out):
     """Kernel K-D: the gradients of MSDA with respect to the value, the
     locations and the weights, for the output cotangent ``grad_out`` (B, Q, M*D),
-    on CUDA tensors. Returns (grad value in the value's dtype, grad locations
-    f32, grad weights f32)."""
+    on CUDA tensors, on the design the C entry point's rule takes at the shape
+    (``ms_deform_attn_bwd_design``). Returns (grad value in the value's dtype,
+    grad locations f32, grad weights f32)."""
+    return _ms_deform_attn_backward_design(value, spatial_shapes, sampling_locations,
+                                           attention_weights, grad_out)[0]
+
+
+def _ms_deform_attn_backward_design(value, spatial_shapes: Shapes, sampling_locations,
+                                    attention_weights, grad_out, force_binned: bool = False):
+    """K-D's launch: ((grad value, grad locations, grad weights), the design
+    the C entry launched, the binned design's scratch or None). With
+    ``force_binned`` the binned design at any shape it can take (a ValueError
+    elsewhere), for the card tests and msda_bwd_bench.py; ``bwd_binned_stats``
+    reads a launch's chunks and global adds from its scratch."""
     from hipie_torch.kernels import build
 
     if value.device.type != "cuda":
         raise ValueError(f"ms_deform_attn_backward: K-D runs on CUDA tensors, got {value.device}")
+    spatial_shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
     _check_inputs(value, spatial_shapes, sampling_locations, attention_weights)
     b, s, m, d = value.shape
     q, n_levels, p = sampling_locations.shape[1], len(spatial_shapes), sampling_locations.shape[4]
+    if tuple(grad_out.shape) != (b, q, m * d):
+        raise ValueError(f"ms_deform_attn_backward: grad_out must be {(b, q, m * d)}, "
+                         f"got {tuple(grad_out.shape)}")
     gout = grad_out.to(value.dtype).contiguous()
-    if tuple(gout.shape) != (b, q, m * d) or gout.device != value.device:
-        raise ValueError(f"ms_deform_attn_backward: grad_out must be ({b}, {q}, {m * d}) on "
-                         f"{value.device}, got {tuple(gout.shape)} on {gout.device}")
     align = value.data_ptr() & -value.data_ptr()
     align = min(align, gout.data_ptr() & -gout.data_ptr())
     vc, tpp = backward_plan(d, value.element_size(), align)
+    aligned = align >= 16 and sampling_locations.data_ptr() % 8 == 0
     lib = build.load()
+    host_shapes = _host_shapes(spatial_shapes).data_ptr()
+    nbytes = ctypes.c_longlong(0)
+    if lib.hipie_ms_deform_attn_bwd_scratch_bytes(host_shapes, b, m, d, q, n_levels, p,
+                                                  int(aligned), int(force_binned),
+                                                  ctypes.addressof(nbytes)):
+        raise ValueError(f"ms_deform_attn_backward: the binned design does not take levels "
+                         f"{spatial_shapes} at B={b}, M={m}, D={d}, Q={q}, P={p}"
+                         f"{'' if aligned else ', unaligned rows'}")
     shapes_t, starts_t = _level_tables(spatial_shapes, value.device)
     grad_value = torch.zeros((b, s, m, d), dtype=torch.float32, device=value.device)
     grad_loc = torch.empty_like(sampling_locations)
     grad_attw = torch.empty_like(attention_weights)
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=value.device)
+               if nbytes.value else None)
+    design = ctypes.c_int(-1)
     err = lib.hipie_ms_deform_attn_bwd(
         value.data_ptr(), shapes_t.data_ptr(), starts_t.data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(), gout.data_ptr(),
         grad_value.data_ptr(), grad_loc.data_ptr(), grad_attw.data_ptr(),
         b, s, m, d, q, n_levels, p, int(value.dtype == torch.bfloat16), vc, tpp,
-        torch.cuda.current_stream(value.device).cuda_stream)
+        host_shapes, int(force_binned), None if scratch is None else scratch.data_ptr(),
+        nbytes.value, ctypes.addressof(design), torch.cuda.current_stream(value.device).cuda_stream)
     build.check(err, "ms_deform_attn_backward")
     kernels.LAUNCHES["ms_deform_attn_bwd"] += 1
-    return grad_value.to(value.dtype), grad_loc, grad_attw
+    BWD_DESIGN_LAUNCHES[BWD_DESIGNS[design.value]] += 1
+    return ((grad_value.to(value.dtype), grad_loc, grad_attw), BWD_DESIGNS[design.value],
+            scratch)
+
+
+def bwd_binned_stats(scratch: torch.Tensor) -> Dict[str, int]:
+    """A binned K-D launch's bins, chunks and global f32 adds (each chunk's
+    flush box, its part past the map included), from the header the launch
+    wrote at the head of its scratch. Waits for the launch."""
+    n_chunks, n_bins, flush_words = scratch[:12].view(torch.int32).tolist()
+    return {"n_bins": n_bins, "n_chunks": n_chunks, "global_adds": n_chunks * flush_words}
 
 
 def _launch(value, spatial_shapes: Shapes, sampling_locations, attention_weights,

@@ -124,12 +124,14 @@ def profile_step(dev, card, steps: int, seed: int, preset: str = "r50"):
     busy = sum(ms for _, ms, _ in per_kernel)
     # device kernels by the hand-written kernels' names (K-E is two a launch:
     # bwd_q_wgmma and bwd_kv_wgmma at the training shapes, dq_kernel and
-    # dkv_kernel at the others)
+    # dkv_kernel at the others; K-D one, ms_deform_attn_bwd_kernel, on its
+    # atomics design, five on its binned one: ms_deform_attn_bwd_bin_count,
+    # _bin_scan, _bin_scatter, _accumulate, _unpermute)
     kernel_names = {"vit_attention": ("vit_attention_kernel",),
                     "vit_attention_bwd": ("bwd_q_wgmma", "bwd_kv_wgmma", "dq_kernel",
                                           "dkv_kernel"),
                     "ms_deform_attn": ("ms_deform_attn_kernel",),
-                    "ms_deform_attn_bwd": ("ms_deform_attn_bwd_kernel",)}
+                    "ms_deform_attn_bwd": ("ms_deform_attn_bwd_",)}
     own = {name: [sum(r[i] for r in per_kernel if any(k in r[0] for k in keys)) for i in (1, 2)]
            for name, keys in kernel_names.items()}
     for name, (_, count) in own.items():

@@ -40,17 +40,24 @@ Inputs are made with numpy from a seed. Tolerances:
     each side then rounds its output to bf16 (2^-9 relative each).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import check_msda, check_msda_bwd, check_vit_attention_bwd, local_locations
 from hipie_torch import kernels
-from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, GATHER_BATCH, MAX_PAIRS, TABLE_CHUNK,
-                                            _launch, backward_plan, kernel_constants,
+from hipie_torch.ops import ms_deform_attn as msda_ops
+from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, BWD_CONSTANTS, BWD_MAX_BINS,
+                                            GATHER_BATCH, MAX_PAIRS, TABLE_CHUNK, _host_shapes,
+                                            _launch, _ms_deform_attn_backward_design,
+                                            backward_plan, bwd_binned_stats, bwd_constants,
+                                            bwd_design_rule, kernel_constants,
                                             kernel_plan, ms_deform_attn,
                                             ms_deform_attn_backward,
-                                            ms_deform_attn_backward_plain, ms_deform_attn_plain)
+                                            ms_deform_attn_backward_plain,
+                                            ms_deform_attn_bwd_design, ms_deform_attn_plain)
 from hipie_torch.ops.msda_reduce import msda_weighted_segment_sum, msda_weighted_segment_sum_plain
 from hipie_torch.ops.vit_attention import (vit_attention_backward, vit_attention_bwd_design,
                                            vit_attention_bwd_plain,
@@ -384,6 +391,130 @@ def test_ms_deform_attn_backward_unaligned_rows(dev, dtype):
     torch.cuda.synchronize()
     check_msda_bwd("ms_deform_attn_bwd", got,
                    ms_deform_attn_backward_plain(value, shapes, loc, w, gout), loc, shapes)
+
+
+def _binned(value, shapes, loc, w, gout):
+    """K-D's binned design, asked for: (the three gradients, the launch's stats)."""
+    got, design, scratch = _ms_deform_attn_backward_design(value, shapes, loc, w, gout,
+                                                           force_binned=True)
+    assert design == "binned"
+    return got, bwd_binned_stats(scratch)
+
+
+def _binned_launches(fn):
+    """fn()'s launches of K-D's binned design, counted where the wrapper launches."""
+    before = msda_ops.BWD_DESIGN_LAUNCHES["binned"]
+    out = fn()
+    return out, msda_ops.BWD_DESIGN_LAUNCHES["binned"] - before
+
+
+def test_ms_deform_attn_bwd_constants_match_the_wrapper(dev):
+    """The wrapper's copies of K-D's binned-design constants and plan equal
+    the built library's (the CPU replay in test_torch_msda_bwd_tiles.py runs on
+    the copies)."""
+    assert bwd_constants() == BWD_CONSTANTS
+
+
+@pytest.mark.parametrize("b,q,m,d,shapes,p,aligned,design", [
+    (2, ENC_S, 8, 32, ENC_SHAPES, 4, True, "binned"),     # the training encoder, 4096 a bin
+    (2, 1110, 8, 32, ENC_SHAPES, 4, True, "atomics"),     # the training decoder, 209 a bin
+    (2, 500, 8, 32, ENC_SHAPES[::-1], 4, True, "atomics"),  # MaskDINO's decoder, 94 a bin
+    (2, R50_S, 8, 32, R50_SHAPES, 4, True, "binned"),     # the R50 encoder, 3298 a bin
+    (1, R50_S, 8, 32, R50_SHAPES, 4, False, "atomics"),   # unaligned rows
+    (2, ENC_S, 8, 16, ENC_SHAPES, 4, True, "atomics"),    # D = 16
+    (2, ENC_S, 8, 32, ENC_SHAPES + ((8, 8),), 4, True, "atomics"),   # 5 levels
+    (1, 4000, 2, 32, ((6, 4), (3, 2)), 3, True, "binned"),  # 4 bins of 12000
+    (1, 300, 2, 32, ((6, 4), (3, 2)), 3, True, "atomics"),  # 4 bins of 900
+    (2, 90000, 8, 32, ((256, 320),), 4, True, "binned"),  # BWD_MAX_BINS = 5120 bins of 1125
+    (2, 90000, 8, 32, ((272, 320),), 4, True, "atomics"),  # 5440 bins: over the most
+])
+def test_ms_deform_attn_bwd_design_rule(dev, b, q, m, d, shapes, p, aligned, design):
+    """The C entry's design by shape, the wrapper's copy of its rule, and the
+    scratch the C entry asks for (none for the atomics design)."""
+    from hipie_torch.kernels import build
+
+    assert ms_deform_attn_bwd_design(shapes, b, m, d, q, p, aligned) == design
+    assert bwd_design_rule(shapes, b, m, d, q, p, aligned) == design
+    nbytes = ctypes.c_longlong(-1)
+    assert build.load().hipie_ms_deform_attn_bwd_scratch_bytes(
+        _host_shapes(shapes).data_ptr(), b, m, d, q, len(shapes), p, int(aligned), 0,
+        ctypes.addressof(nbytes)) == 0
+    assert (nbytes.value > 0) == (design == "binned")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,q,m,shapes,p,locations", [
+    (2, ENC_S, 8, ENC_SHAPES, 4, "uniform"),             # the training encoder
+    (2, ENC_S, 8, ENC_SHAPES, 4, "local"),
+    (2, 1110, 8, ENC_SHAPES, 4, "uniform"),              # the decoder, taken binned here
+    (2, 500, 8, ENC_SHAPES[::-1], 4, "uniform"),         # levels smallest first
+    (1, R50_S, 8, R50_SHAPES, 4, "uniform"),             # partial tiles: 100 x 152 ...
+    (1, 45, 2, ((13, 19), (7, 10)), 8, "edges"),         # on edges and outside
+    (1, 50, 2, ((5, 7),), 2, "uniform"),                 # one level
+    (2, 600, 8, ((256, 320),), 4, "uniform"),            # the most bins it takes: 5120
+])
+def test_ms_deform_attn_backward_binned_matches_plain(dev, dtype, b, q, m, shapes, p, locations):
+    """The binned design, asked for, against the plain version's autograd."""
+    value, loc, w = _msda_inputs(b, q, m, 32, shapes, p, q + 7, dev, dtype, locations)
+    gout = _gout(b, q, m, 32, q + 8, dev, dtype)
+    (got, stats), n = _binned_launches(lambda: _binned(value, shapes, loc, w, gout))
+    assert n == 1 and stats["n_bins"] <= BWD_MAX_BINS and stats["n_chunks"] >= 1
+    want = ms_deform_attn_backward_plain(value, shapes, loc, w, gout)
+    torch.cuda.synchronize()
+    check_msda_bwd("ms_deform_attn_bwd binned", got, want, loc, shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_backward_binned_overfull_bins(dev, dtype):
+    """Bins of more than 4096 samples split into several chunks: each head's
+    9600 samples of a 16 x 16 level go to its one tile (over 5000 of them
+    inside the map), the other level's spread over 6 tiles; against the plain
+    version's autograd; the launch's scratch counts more chunks than bins."""
+    shapes = ((16, 16), (40, 24))
+    b, q, m, p = 1, 1200, 4, 8
+    value, loc, w = _msda_inputs(b, q, m, 32, shapes, p, 21, dev, dtype)
+    gout = _gout(b, q, m, 32, 22, dev, dtype)
+    assert ms_deform_attn_bwd_design(shapes, b, m, 32, q, p) == "binned"
+    got, design, scratch = _ms_deform_attn_backward_design(value, shapes, loc, w, gout)
+    assert design == "binned"
+    stats = bwd_binned_stats(scratch)
+    assert q * p > 2 * 4096 and stats["n_bins"] == m * (1 + 3 * 2)
+    assert stats["n_chunks"] >= stats["n_bins"] + m       # each head's 16 x 16 tile split
+    check_msda_bwd("ms_deform_attn_bwd overfull", got,
+                   ms_deform_attn_backward_plain(value, shapes, loc, w, gout), loc, shapes)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ms_deform_attn_backward_unaligned_rows_take_atomics(dev, dtype):
+    """At the training encoder's shape a value view one element into its
+    storage takes the atomics design, one channel a thread, and the binned
+    design refuses it."""
+    value, loc, w = _msda_inputs(1, ENC_S, 8, 32, ENC_SHAPES, 4, 5, dev, dtype)
+    flat = torch.empty(value.numel() + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(value.shape)
+    shifted.copy_(value)
+    gout = _gout(1, ENC_S, 8, 32, 6, dev, dtype)
+    got, n = _binned_launches(lambda: ms_deform_attn_backward(shifted, ENC_SHAPES, loc, w, gout))
+    assert n == 0
+    torch.cuda.synchronize()
+    check_msda_bwd("ms_deform_attn_bwd", got,
+                   ms_deform_attn_backward_plain(value, ENC_SHAPES, loc, w, gout), loc, ENC_SHAPES)
+    with pytest.raises(ValueError):
+        _binned(shifted, ENC_SHAPES, loc, w, gout)
+
+
+def test_ms_deform_attn_backward_binned_refuses_what_it_does_not_take(dev):
+    """Asked for, the binned design refuses D = 16 and more than
+    BWD_MAX_BINS bins."""
+    value, loc, w = _msda_inputs(1, 40, 2, 16, ((6, 5),), 4, 3, dev, torch.float32)
+    gout = _gout(1, 40, 2, 16, 4, dev, torch.float32)
+    with pytest.raises(ValueError):
+        _binned(value, ((6, 5),), loc, w, gout)
+    shapes = ((272, 320),)                                # 340 tiles x 2 x 8 = 5440 bins
+    value, loc, w = _msda_inputs(2, 10, 8, 32, shapes, 4, 3, dev, torch.bfloat16)
+    gout = _gout(2, 10, 8, 32, 4, dev, torch.bfloat16)
+    with pytest.raises(ValueError):
+        _binned(value, shapes, loc, w, gout)
 
 
 @pytest.mark.parametrize("method", ["fused", "flat4"])

@@ -176,7 +176,8 @@ def test_vit_training_runs_without_jax():
 
 def _port_sources():
     return sorted((REPO / "hipie_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_serve.py", REPO / "msda_bench.py"]
+        REPO / "chip_smoke.py", REPO / "profile_serve.py", REPO / "msda_bench.py",
+        REPO / "vit_bwd_bench.py", REPO / "msda_bwd_bench.py"]
 
 
 def _forbidden_imports(path):
@@ -195,8 +196,8 @@ def _forbidden_imports(path):
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     """Every import statement of hipie_torch/, chip_smoke.py, profile_serve.py and
-    msda_bench.py, at any depth (inside functions too), stays out of hipie_tpu, jax and
-    flax."""
+    the kernel benches (msda_bench.py, vit_bwd_bench.py, msda_bwd_bench.py), at any
+    depth (inside functions too), stays out of hipie_tpu, jax and flax."""
     sources = _port_sources()
     assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}
