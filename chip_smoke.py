@@ -27,9 +27,11 @@ prints no result line):
     encoder shape. K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform
     and local locations), decoders and MaskDINO decoders in bf16, the R50 ones
     and the ViT-H encoder in f32, and the training step's three shapes at
-    batch 2; its record adds each case's numbers and the encoder's corner-row
-    traffic and rate. K-D (the MSDA backward) runs MSDA_BWD_CASES, every
-    training shape in bf16 and f32 (the encoder also with local locations),
+    batch 2 at 1024x1024 and at the pipeline phase's 256x256; its record
+    adds each case's numbers and bound and the encoder's corner-row traffic
+    and rate. K-D (the MSDA backward) runs MSDA_BWD_CASES, every training
+    shape in bf16 and f32 (the encoder also with local locations; the
+    pipeline phase's 256x256 shapes in bf16),
     against the plain version's autograd (``check_msda_bwd``), its plain time
     by CUDA events around eager calls (autograd does not go into a graph),
     naming the design its C entry launched at each ("binned" or "atomics")
@@ -77,8 +79,23 @@ prints no result line):
     K-A's and K-E's counts are also held to the 24 global blocks ViT-H has,
     counted without the model's dispatch predicate, and every K-E launch must
     take the wgmma design.
+ 9. pipeline: dataset to PQ through the port's entry points. The fixture
+    (hipie_torch.tools.make_tiny_coco: 6 train and 4 val 256x256 PNG images,
+    the refcoco splits) in a temporary directory; train_net.main on
+    configs/smoke_tiny_coco.yaml (R50 and BERT-base at full width, batch 2 of
+    256x256 LSJ crops, 64 text tokens) over coco_panoptic_train and
+    refcoco-mixed, so that the detection and the grounding steps both run:
+    PIPE_STEPS steps, a checkpoint and an inline evaluation (2 val images)
+    at the last; a fresh Trainer resumed from that checkpoint, its model and
+    AdamW state bit-equal to the saved ones and its step PIPE_STEPS, then
+    PIPE_MORE_STEPS more steps; eval_net.main on coco_panoptic_val with the
+    checkpoint (box and mask AP, PQ, SQ, RQ, PQ_th, PQ_st, each finite; with
+    random weights PQ may be 0). It prints each step's task, loss, data time
+    and step time, the fixture's size, whether the native mask IoU (evalcore)
+    built, each checkpoint's bytes and seconds to save, the seconds to resume;
+    K-B and K-D must each be launched in the phase (counts reset before it).
 Every shape at which phases 5 and 8 launched K-A, every shape at which phases
-5 to 8 launched K-B, every shape at which phases 7 and 8 launched K-D, and
+5 to 9 launched K-B, every shape at which phases 7 to 9 launched K-D, and
 every shape at which phase 8 launched K-E must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -90,11 +107,14 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from collections import Counter
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -124,6 +144,12 @@ MSDA_M, MSDA_D, MSDA_P = 8, 32, 4
 TRAIN_B = 2
 TRAIN_DEC_Q = 200 + 10 + 900
 TRAIN_MD_Q = 200 + 300
+# The pipeline phase (configs/smoke_tiny_coco.yaml: R50, batch 2 of 256x256
+# LSJ crops): levels at strides 8 to 64, encoder Q = S = 1360, the decoder's
+# and MaskDINO's queries as in the training step above.
+PIPE_SIZE = 256
+PIPE_LEVELS = ((32, 32), (16, 16), (8, 8), (4, 4))
+PIPE_S = sum(h * w for h, w in PIPE_LEVELS)        # 1360 encoder queries
 MSDA_CASES = (
     # name, levels, B, Q, dtype, locations
     ("encoder", VITH_LEVELS, 1, VITH_S, torch.bfloat16, "uniform"),
@@ -141,6 +167,9 @@ MSDA_CASES = (
     ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
     ("train_decoder", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
     ("train_maskdino", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("pipe_encoder", PIPE_LEVELS, TRAIN_B, PIPE_S, torch.bfloat16, "uniform"),
+    ("pipe_decoder", PIPE_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("pipe_maskdino", PIPE_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
 )
 # K-D's cases: every shape the training phase launches it at (bf16), each also
 # in f32, and the encoder with local locations; main() fails if the training
@@ -154,6 +183,9 @@ MSDA_BWD_CASES = (
     ("train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S, torch.float32, "uniform"),
     ("train_decoder_f32", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.float32, "uniform"),
     ("train_maskdino_f32", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.float32, "uniform"),
+    ("pipe_encoder", PIPE_LEVELS, TRAIN_B, PIPE_S, torch.bfloat16, "uniform"),
+    ("pipe_decoder", PIPE_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("pipe_maskdino", PIPE_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
 )
 # K-A's cases (name, BH, Kh, Kw, hd), bf16: a ViT-H request (one image: BH =
 # 16, N = 4096, hd 80) and the ViT-H training step (batch 2: BH = 32), each
@@ -607,8 +639,12 @@ def _check_msda(dev, card):
         ms = cuda_time_ms(lambda: ms_deform_attn(value, levels, loc, w), 20)
         plain_ms = cuda_time_ms(lambda: ms_deform_attn_plain(value, levels, loc, w), 5)
         traffic = corner_bytes(value, loc)
+        # per sample: 4 corners x D channels, a multiply-add each, in f32
+        case_bound = bound(8.0 * loc[..., 0].numel() * MSDA_D, nbytes(value, loc, w, got),
+                           PEAK_F32, "f32 cores")
         c = {"case": name, "b": b, "q": q, "s": value.shape[1], "dtype": str(dtype)[6:],
              "locations": locations, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+             "bound_ms": case_bound["bound_ms"],
              "tol": tol, "rel_err": rel, "corner_bytes": traffic,
              "corner_rate_tbs": traffic / ms / 1e9,
              "plan": kernel_plan(MSDA_D, value.element_size(), b * q * MSDA_M)._asdict(),
@@ -617,13 +653,11 @@ def _check_msda(dev, card):
         log(f"[kernels] ms_deform_attn {name} B={b} Q={q} S={c['s']} M={MSDA_M} D={MSDA_D} "
             f"L={len(levels)} P={MSDA_P} {c['dtype']}, {locations} locations: max abs err "
             f"{err:.3e} (tol {tol:.3e}), relative norm err {rel:.3e}, kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, corner rows {traffic / 1e6:.1f} MB at "
+            f"{plain_ms:.3f} ms, bound {c['bound_ms']:.4f} ms, corner rows "
+            f"{traffic / 1e6:.1f} MB at "
             f"{c['corner_rate_tbs']:.2f} TB/s; plan {c['plan']}")
         if name == "encoder":
-            # per sample: 4 corners x D channels, a multiply-add each, in f32
-            bnd = bound(8.0 * loc[..., 0].numel() * MSDA_D, nbytes(value, loc, w, got), PEAK_F32,
-                        "f32 cores")
-            enc = c
+            bnd, enc = case_bound, c
         del value, loc, w, got, want
     log(f"[kernels] ms_deform_attn bound {bnd['bound_ms']:.4f} ms ({bnd['bound_unit']}: "
         f"{bnd['bound_bytes'] / 1e6:.1f} MB), kernel at "
@@ -638,8 +672,8 @@ def _check_msda(dev, card):
               "library_note": "no single PyTorch call computes MSDA: the nearest is one "
                               "grid_sample per level plus a weighted sum, the plain version",
               "shapes": {c["case"]: {k: c[k] for k in ("b", "q", "s", "dtype", "locations", "ms",
-                                                       "plain_ms", "max_abs_err", "tol",
-                                                       "rel_err", "plan")}
+                                                       "plain_ms", "bound_ms", "max_abs_err",
+                                                       "tol", "rel_err", "plan")}
                          for c in cases},
               "corner_bytes": enc["corner_bytes"], "corner_rate_tbs": enc["corner_rate_tbs"]}
     return record, cases
@@ -1390,7 +1424,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         return weight_fn(losses, lcfg)
 
     batches = train_batches(cfg, steps, SEED, img=img, slots=slots, batch=TRAIN_B)
-    trainer = Trainer(cfg, state, train_step, iter(batches), log_period=1, device=dev)
+    trainer = Trainer(cfg, state, train_step, iter(batches), log_period=1, device=dev,
+                      checkpoints=False)
     ka_shapes, kb_shapes, kd_shapes, ke_shapes = [], [], [], []
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -1483,6 +1518,206 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
              "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs}, ka_shapes, kb_shapes,
             kd_shapes, ke_shapes)
 
+PIPE_STEPS = 4
+PIPE_MORE_STEPS = 2
+SMOKE_CONFIG = "configs/smoke_tiny_coco.yaml"
+PIPE_METRICS = ("bbox/AP", "segm/AP", "panoptic/PQ", "panoptic/SQ", "panoptic/RQ",
+                "panoptic/PQ_th", "panoptic/PQ_st")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().reshape(-1).contiguous().view(torch.uint8)
+
+
+def check_bit_equal(what: str, got: dict, want: dict) -> int:
+    """Every tensor of ``want`` is in ``got`` with the same dtype, shape and
+    bits; returns the bytes compared."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys differ: {sorted(set(got) ^ set(want))[:8]}")
+    n = 0
+    for k, w in want.items():
+        g = got[k]
+        if not torch.is_tensor(w):
+            if g != w:
+                raise AssertionError(f"{what}: {k} = {g!r}, saved {w!r}")
+            continue
+        if g.dtype != w.dtype or g.shape != w.shape or not torch.equal(
+                _bits(g).cpu(), _bits(w).cpu()):
+            raise AssertionError(f"{what}: {k} is not bit-equal to the saved tensor")
+        n += w.numel() * w.element_size()
+    return n
+
+
+def optimizer_tensors(opt) -> dict:
+    """GroupedAdamW's state as flat entries: each parameter's AdamW tensors by
+    index, the update count and the accumulation window."""
+    sd = opt.state_dict()
+    out = {f"{i}.{k}": v for i, st in sd["adamw"]["state"].items() for k, v in st.items()}
+    out.update(updates=sd["updates"], micro=sd["micro"], acc=sd["acc"])
+    return out
+
+
+def time_mapper(cfg, datasets, crops=(PIPE_SIZE, 1024)) -> dict:
+    """Host ms per train image of the data path on the fixture's 6 train
+    images: ``load`` (materialize_record: PNG decode, panoptic PNG to
+    instance masks) and the training mapper (LSJ resize and crop, flip,
+    prompt, padded targets) at each crop size; each timed after one warm-up
+    pass."""
+    from hipie_torch.data.mapper import HIPIEMapper
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+
+    records = datasets.get_dataset("coco_panoptic_train")
+    datasets.materialize_record(records[0])
+    t0 = time.perf_counter()
+    loaded = [datasets.materialize_record(r) for r in records]
+    out = {"load": 1e3 * (time.perf_counter() - t0) / len(records)}
+    for crop in crops:
+        data_cfg = dataclasses.replace(cfg.data, crop_size=crop)
+        mapper = HIPIEMapper(data_cfg, WordPieceTokenizer.toy(), max_gt=cfg.model.max_insts_num,
+                             seed=SEED)
+        mapper(loaded[0], bucket=(crop, crop))
+        t0 = time.perf_counter()
+        for r in loaded:
+            mapper(r, bucket=(crop, crop))
+        out[crop] = 1e3 * (time.perf_counter() - t0) / len(loaded)
+    return out
+
+
+def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
+    """Dataset to PQ through the port's entry points: the fixture from
+    hipie_torch.tools.make_tiny_coco (6 train and 4 val PNG images of ``size``,
+    the refcoco splits) in a temporary directory; train_net.main on
+    ``config`` (configs/smoke_tiny_coco.yaml: R50 and BERT-base at full width,
+    batch 2 of 256x256 LSJ crops) over coco_panoptic_train and refcoco-mixed
+    for PIPE_STEPS steps, a checkpoint and an inline evaluation of 2 val images
+    at the last; a fresh Trainer resumed from that checkpoint, its model and
+    AdamW state bit-equal to the saved ones at step PIPE_STEPS, then
+    PIPE_MORE_STEPS more steps (no more saves: the phase writes the step's
+    checkpoint and model_best); eval_net.main on coco_panoptic_val with the
+    checkpoint. Returns K-B's and K-D's launches and shapes over the phase."""
+    import hipie_torch.data.datasets as datasets
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    import hipie_torch.train.trainer as trainer_module
+    from hipie_torch import kernels, native
+    from hipie_torch.tools import eval_net, make_tiny_coco, train_net
+
+    config = config or str(Path(__file__).resolve().parent / SMOKE_CONFIG)
+    root = tempfile.mkdtemp(prefix="hipie_pipeline_")
+    data, run = os.path.join(root, "data"), os.path.join(root, "run")
+    kb_shapes, kd_shapes, saves = [], [], []
+    save = trainer_module.save_checkpoint
+
+    def timed_save(*a, **k):
+        t = time.perf_counter()
+        path = save(*a, **k)
+        saves.append((os.path.basename(path), time.perf_counter() - t, os.path.getsize(path)))
+        return path
+
+    old_root = os.environ.get("HIPIE_DATASETS")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            make_tiny_coco.main(["--root", data, "--n-train", "6", "--n-val", "4", "--size",
+                                 str(size), "--refcoco"])
+        fixture_s = time.perf_counter() - t0
+        n_files = sum(len(f) for _, _, f in os.walk(data))
+        fixture_bytes = make_tiny_coco.dataset_bytes(data)
+        os.environ["HIPIE_DATASETS"] = data
+        datasets._register_builtin()            # the registry binds its root when imported
+        mapper_ms = time_mapper(train_net.build_config(config, "", ()), datasets)
+        argv = ["--config-file", config, "--device", str(dev), "--log-period", "1",
+                "output_dir", run, "solver.checkpoint_period", str(PIPE_STEPS),
+                "test.eval_period", str(PIPE_STEPS), "test.eval_max_images", "2",
+                "data.train_datasets", "['coco_panoptic_train', 'refcoco-mixed']",
+                "data.dataset_ratios", "[1.0, 1.0]", *opts]
+        trainer_module.save_checkpoint = timed_save
+        with timing_calls(msda_module, "ms_deform_attn",
+                          lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)), timed=False), \
+                timing_calls(msda_ops, "ms_deform_attn_backward",
+                             lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False):
+            kernels.reset_launch_counts()
+            first = train_net.main(argv + ["solver.max_iter", str(PIPE_STEPS)])
+            ckpt = os.path.join(run, f"model_{PIPE_STEPS:07d}.pth")
+            if [n for n, _, _ in saves] != [os.path.basename(ckpt), "model_best.pth"]:
+                raise AssertionError(f"pipeline: the first run saved {saves}, expected "
+                                     f"{os.path.basename(ckpt)} and model_best.pth")
+            second, _ = train_net.build_trainer(argv + [
+                "solver.max_iter", str(PIPE_STEPS + PIPE_MORE_STEPS), "test.eval_period", "0"])
+            second.checkpoints = False
+            t0 = time.perf_counter()
+            resumed = second.resume_or_load(None, resume=True)
+            load_s = time.perf_counter() - t0
+            if not resumed or second.state.step != PIPE_STEPS:
+                raise AssertionError(f"pipeline: resume gave resumed={resumed}, step "
+                                     f"{second.state.step}, expected step {PIPE_STEPS}")
+            n_model = check_bit_equal("resumed model", second.state.model.state_dict(),
+                                      first.state.model.state_dict())
+            n_opt = check_bit_equal("resumed AdamW state",
+                                    optimizer_tensors(second.state.optimizer),
+                                    optimizer_tensors(first.state.optimizer))
+            inline_eval = first.history[-1].get("eval", {})
+            model = first.state.model
+            n_params = sum(p.numel() for p in model.parameters())
+            n_train = sum(p.numel() for p in first.state.optimizer.params)
+            n_buffers = sum(b.numel() for b in model.buffers())
+            del model
+            history = first.history + [None]
+            del first
+            second.train()
+            history += second.history
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                results = eval_net.main(["--config-file", config, "--dataset",
+                                         "coco_panoptic_val", "--weights", ckpt,
+                                         "--device", str(dev)])
+            eval_s = time.perf_counter() - t0
+            launches = {k: kernels.LAUNCHES[k] for k in ("ms_deform_attn", "ms_deform_attn_bwd")}
+    finally:
+        trainer_module.save_checkpoint = save
+        if old_root is None:
+            os.environ.pop("HIPIE_DATASETS", None)
+        else:
+            os.environ["HIPIE_DATASETS"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+
+    steps = [h for h in history if h is not None]
+    tasks = Counter(h["task"] for h in steps)
+    if set(tasks) != {"detection", "grounding"}:
+        raise AssertionError(f"pipeline: the steps ran the tasks {dict(tasks)}, expected both "
+                             f"detection and grounding")
+    bad = [i for i, h in enumerate(steps) if not np.isfinite(h["total_loss"])]
+    bad_metrics = [k for k in PIPE_METRICS if not np.isfinite(results.get(k, float("nan")))]
+    if bad or bad_metrics or not inline_eval:
+        raise AssertionError(f"pipeline: non-finite total loss at steps {bad}, eval metrics "
+                             f"{bad_metrics} not finite, inline eval {inline_eval}")
+    log(f"[pipeline] fixture: 6 train + 4 val images of {size}x{size} (PNG) and the refcoco "
+        f"splits, {n_files} files, {fixture_bytes} bytes, made in {fixture_s:.2f} s; mask IoU "
+        f"{native.status()}")
+    log(f"[pipeline] host data path per train image (6 fixture images, after a warm-up): load "
+        f"and decode {mapper_ms['load']:.2f} ms; mapper "
+        + ", ".join(f"{v:.2f} ms at a {k}x{k} LSJ crop" for k, v in mapper_ms.items()
+                    if k != "load"))
+    log("[pipeline] steps (task, total loss, data_time ms, step ms): "
+        + ", ".join("resume" if h is None else
+                    f"({h['task']}, {h['total_loss']:.2f}, {1e3 * h['data_time_s']:.1f}, "
+                    f"{1e3 * h['time_s']:.1f})" for h in history))
+    log(f"[pipeline] {n_params} parameters ({n_train} trainable), {n_buffers} buffer values: "
+        f"f32 weights and buffers plus two f32 AdamW moments = "
+        f"{4 * (n_params + n_buffers) + 8 * n_train} bytes a checkpoint, before pickling")
+    log(f"[pipeline] checkpoints: " + ", ".join(f"{n} {b} bytes saved in {t:.2f} s"
+                                               for n, t, b in saves)
+        + f"; resumed in {load_s:.2f} s at step {PIPE_STEPS}, model ({n_model} bytes) and "
+          f"AdamW state ({n_opt} bytes) bit-equal to the saved ones")
+    log(f"[pipeline] inline eval at step {PIPE_STEPS} (2 images): "
+        f"{ {k: round(float(v), 4) for k, v in inline_eval.items() if k in PIPE_METRICS} }")
+    log(f"[pipeline] eval_net coco_panoptic_val ({results['images']} images, "
+        f"{results['sec_per_image']:.3f} s an image, {eval_s:.1f} s in all): "
+        f"{ {k: round(float(results[k]), 4) for k in PIPE_METRICS} }; launches K-B "
+        f"{launches['ms_deform_attn']}, K-D {launches['ms_deform_attn_bwd']}; card {card}")
+    return ({"launches": launches, "steps": steps, "eval": results, "mapper_ms": mapper_ms},
+            kb_shapes, kd_shapes)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1505,6 +1740,11 @@ def main() -> int:
 
     vit_train, vit_ka, vit_kb, vit_kd, vit_ke = phase_train(
         dev, card, cfg=vit_huge_coco_panoptic(), steps=VIT_TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    pipe, pipe_kb, pipe_kd = phase_pipeline(dev, card)
+    missing = [k for k, n in pipe["launches"].items() if n == 0]
+    if missing:
+        raise AssertionError(f"the pipeline phase never launched {missing}: {pipe['launches']}")
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
     # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
     # must take K-A, again under vit_remat, and K-E for its gradient: counted
@@ -1517,8 +1757,8 @@ def main() -> int:
                              f"{vit_want}")
     check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
-                                     + vit_kb if s])
-    check_coverage("K-D", bwd_cases, train_kd + vit_kd)
+                                     + vit_kb + pipe_kb if s])
+    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd)
     check_coverage("K-E", vit_bwd_cases, vit_ke)
     # every K-E launch of the ViT-H step on the wgmma design
     from hipie_torch.ops.vit_attention import vit_attention_bwd_design
@@ -1538,6 +1778,12 @@ def main() -> int:
         launches["msda_reduce"])
     kb = next(r for r in records if r["name"] == "ms_deform_attn")
     kb["launches_per_train_step"] = train["per_step"]["ms_deform_attn"]
+    for r in records:
+        if r["name"] in pipe["launches"]:
+            r["launches_pipeline"] = pipe["launches"][r["name"]]
+            shapes = pipe_kb if r["name"] == "ms_deform_attn" else pipe_kd
+            r["pipeline_shapes"] = dict(Counter(f"S={sum(h * w for h, w in x[0])} B={x[1]} "
+                                                f"Q={x[2]} {x[5]}" for x in shapes if x))
     kd = next(r for r in records if r["name"] == "ms_deform_attn_bwd")
     kd["launches_per_train_step"] = train["per_step"]["ms_deform_attn_bwd"]
     kd["train_ms_per_step"] = train["ms_per_step"]

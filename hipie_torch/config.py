@@ -18,6 +18,7 @@ static values.
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -360,13 +361,109 @@ def _flatten(d: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+_YAML_BOOL = {"yes": True, "true": True, "on": True, "no": False, "false": False, "off": False}
+_YAML_INT = re.compile(r"^[-+]?(0|[1-9][0-9_]*)$")
+_YAML_FLOAT = re.compile(r"^[-+]?([0-9][0-9_]*)?\.[0-9_]*([eE][-+][0-9]+)?$")
+
+
+def _yaml_scalar(text: str) -> Any:
+    """A plain or quoted YAML scalar, resolved as PyYAML's safe_load does
+    (YAML 1.1: a float needs a dot, so ``1e-4`` stays a string)."""
+    t = text.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        body = t[1:-1]
+        return body.replace("''", "'") if t[0] == "'" else bytes(body, "utf-8").decode(
+            "unicode_escape")
+    if t in ("", "~", "null", "Null", "NULL"):
+        return None
+    if t.lower() in _YAML_BOOL and t in (t.lower(), t.capitalize(), t.upper()):
+        return _YAML_BOOL[t.lower()]
+    if _YAML_INT.match(t):
+        return int(t.replace("_", ""))
+    if _YAML_FLOAT.match(t) and t not in (".", "+.", "-."):
+        return float(t.replace("_", ""))
+    if t.lower() in (".inf", "+.inf", "-.inf") and t[-3:] in ("inf", "Inf", "INF"):
+        return float(t.replace(".", ""))
+    if t in (".nan", ".NaN", ".NAN"):
+        return float("nan")
+    return t
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts the line or follows a space, outside quotes."""
+    quote = None
+    for i, c in enumerate(line):
+        if quote:
+            quote = None if c == quote else quote
+        elif c in "'\"":
+            quote = c
+        elif c == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _yaml_value(text: str) -> Any:
+    """A flow list ``[a, b]`` (one level, as the configs write them) or a scalar."""
+    t = text.strip()
+    if t.startswith("[") and t.endswith("]"):
+        inner = t[1:-1].strip()
+        return [_yaml_scalar(x) for x in inner.split(",")] if inner else []
+    return _yaml_scalar(t)
+
+
+def parse_yaml(text: str) -> Dict[str, Any]:
+    """The YAML subset configs/*.yaml use: nested block maps by indentation,
+    block (``- x``) and flow (``[x, y]``) lists of scalars, plain and quoted
+    scalars, comments. Equal to ``yaml.safe_load`` on those files (held by
+    tests/test_torch_data.py); anything else raises."""
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        line = _strip_comment(raw).rstrip()
+        if line.strip():
+            if "\t" in line[:len(line) - len(line.lstrip())]:
+                raise ValueError(f"YAML line {n}: tab in indentation")
+            lines.append((len(line) - len(line.lstrip()), line.strip(), n))
+
+    def block(i: int, indent: int):
+        """Parse the block at ``indent`` starting at line i -> (value, next i)."""
+        if lines[i][1].startswith("- ") or lines[i][1] == "-":
+            out = []
+            while i < len(lines) and lines[i][0] == indent and lines[i][1].startswith("-"):
+                out.append(_yaml_value(lines[i][1][1:]))
+                i += 1
+            return out, i
+        out: Dict[str, Any] = {}
+        while i < len(lines) and lines[i][0] == indent:
+            ind, body, n = lines[i]
+            key, sep, rest = body.partition(":")
+            if not sep or (rest and not rest[0].isspace()):
+                raise ValueError(f"YAML line {n}: expected 'key: value', got {body!r}")
+            key = _yaml_scalar(key)
+            i += 1
+            if rest.strip():
+                out[key] = _yaml_value(rest)
+            elif i < len(lines) and (lines[i][0] > indent or (
+                    lines[i][0] == indent and lines[i][1].startswith("-"))):
+                out[key], i = block(i, lines[i][0])
+            else:
+                out[key] = None
+        return out, i
+
+    if not lines:
+        return {}
+    value, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"YAML line {lines[i][2]}: unexpected indentation")
+    return value
+
+
 def load_config(path: str) -> HIPIEConfig:
-    """Load a YAML config with `_BASE_` inheritance into the dataclass tree."""
-    import yaml
+    """Load a YAML config with `_BASE_` inheritance into the dataclass tree
+    (read by ``parse_yaml``: no PyYAML needed)."""
 
     def load_dict(p: str) -> Dict[str, Any]:
         with open(p) as f:
-            d = yaml.safe_load(f) or {}
+            d = parse_yaml(f.read()) or {}
         base = d.pop("_BASE_", None)
         if base:
             import os

@@ -168,3 +168,17 @@ class GroupedAdamW:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+
+    def state_dict(self) -> Dict[str, object]:
+        """The inner AdamW's state (moments and step counts by parameter
+        index), the schedule's update count and the accumulation window."""
+        return {"adamw": self.opt.state_dict(), "updates": self.updates,
+                "micro": self._micro, "acc": self._acc}
+
+    def load_state_dict(self, sd: Dict[str, object]) -> None:
+        self.opt.load_state_dict(sd["adamw"])
+        self.updates = int(sd["updates"])
+        self._micro = int(sd["micro"])
+        acc = sd["acc"]
+        self._acc = None if acc is None else [a.to(p.device, p.dtype)
+                                              for a, p in zip(acc, self.params)]

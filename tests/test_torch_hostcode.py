@@ -7,6 +7,7 @@ asks for equality: exact, since both are the same host code over numpy.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -217,3 +218,28 @@ def test_event_storage_is_the_same(tmp_path, capsys):
             st.log_console(lr=1e-4)
         out.append(((d / "metrics.json").read_text(), capsys.readouterr().out))
     assert out[0] == out[1] and out[0][0].count("\n") == 5
+
+
+def test_dataset_registry_and_label_files_are_the_same():
+    """datasets.py + datasets_extra.py register the same names with the same
+    metadata in both packages, and the port's copy of the open-vocab label
+    files gives the same label sets."""
+    import hipie_tpu.data.datasets as jds
+    import hipie_tpu.data.datasets_extra as jdx
+    import hipie_torch.data.datasets as tds
+    import hipie_torch.data.datasets_extra as tdx
+
+    assert set(tds.DATASET_REGISTRY) == set(jds.DATASET_REGISTRY)
+    assert tds.DATASET_METADATA == jds.DATASET_METADATA
+    assert {"coco_panoptic_train", "refcoco-mixed", "ade20k_sem_seg_val", "pascal_parts_val",
+            "seginw_Elephants_val"} <= set(tds.DATASET_REGISTRY)
+    assert any(n.startswith("odinw_") for n in tds.DATASET_REGISTRY)
+    names = sorted(os.path.basename(p)[:-4] for p in os.listdir(jdx.OPENSEG_LABELS_DIR)
+                   if p.endswith(".txt"))
+    assert names == sorted(os.path.basename(p)[:-4] for p in os.listdir(tdx.OPENSEG_LABELS_DIR)
+                           if p.endswith(".txt"))
+    for name in names:
+        if name.endswith("_with_prompt_eng"):
+            continue
+        assert tdx.get_openseg_labels(name) == jdx.get_openseg_labels(name), name
+        assert tdx.openseg_names_and_things(name) == jdx.openseg_names_and_things(name), name

@@ -1,6 +1,9 @@
 """The port stands alone: it runs without JAX and without the JAX package,
 imports neither anywhere, serves and trains on the card by default, and
-chip_smoke.py refuses to run without a card.
+chip_smoke.py refuses to run without a card. It also runs without the host
+libraries the card's machine lacks (cv2, PIL, PyYAML, torchvision): none is
+imported anywhere in the port or chip_smoke.py, but for PIL inside
+``hipie_torch/data/image_io.py::load_image``, for images other than PNG.
 
 The runs are in fresh interpreters, so nothing this test process imported
 leaks in; there ``sys.modules["hipie_tpu"] = None`` makes any import of the JAX
@@ -17,6 +20,10 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("hipie_tpu", "jax", "flax")
+HOST_LIBS = ("cv2", "PIL", "yaml", "torchvision")
+# the one import of a host library the port makes, at call time, for images
+# other than PNG: (file, function, module)
+HOST_LIB_ALLOWED = {("hipie_torch/data/image_io.py", "load_image", "PIL")}
 
 BLOCK_JAX_PACKAGE = r"""
 import sys
@@ -145,6 +152,60 @@ print("NOJAX_OK")
 """
 
 
+# The fixture, then train_net for a step with an inline evaluation and
+# eval_net on a referring split, on the CPU, with the JAX package and the host
+# libraries the card's machine lacks all blocked.
+TRAIN_NET = BLOCK_JAX_PACKAGE + r"""
+for name in ("cv2", "PIL", "yaml", "torchvision"):
+    sys.modules[name] = None
+import dataclasses, os, tempfile
+from hipie_torch.config import HIPIEConfig, apply_overrides, tiny_test_config
+from hipie_torch.tools import eval_net, make_tiny_coco, train_net
+
+work = tempfile.mkdtemp()
+root = os.path.join(work, "data")
+make_tiny_coco.main(["--root", root, "--n-train", "6", "--n-val", "4", "--size", "128",
+                     "--refcoco"])
+os.environ["HIPIE_DATASETS"] = root
+cfg = apply_overrides(tiny_test_config(), {
+    "model.backbone.resnet_depth": 18, "model.max_matched_masks": 8, "data.crop_size": 128,
+    "data.max_text_len": 16, "data.min_size_test": 96, "data.max_size_test": 128,
+    "data.test_dataset": "coco_panoptic_val", "test.test_size": [128, 128],
+    "data.train_datasets": ["coco_panoptic_train", "refcoco-mixed"],
+    "data.dataset_ratios": [1.0, 1.0], "solver.ims_per_batch": 1, "solver.max_iter": 1,
+    "solver.checkpoint_period": 1, "test.eval_period": 1, "test.eval_max_images": 1})
+
+def diff(a, b):
+    return {k: (diff(v, b[k]) if isinstance(v, dict) else v) for k, v in a.items()
+            if v != b[k]}
+
+def lines(d, ind=0):
+    for k, v in d.items():
+        if isinstance(v, dict):
+            yield " " * ind + f"{k}:"
+            yield from lines(v, ind + 2)
+        elif isinstance(v, (list, tuple)):
+            yield " " * ind + f"{k}: [{', '.join(str(x) for x in v)}]"
+        else:
+            yield " " * ind + f"{k}: {v}"
+
+cfg_file = os.path.join(work, "tiny.yaml")
+with open(cfg_file, "w") as f:
+    f.write("\n".join(lines(diff(dataclasses.asdict(cfg), dataclasses.asdict(HIPIEConfig())))))
+run = os.path.join(work, "run")
+trainer = train_net.main(["--config-file", cfg_file, "--device", "cpu", "output_dir", run])
+assert trainer.state.step == 1 and "panoptic/PQ" in trainer.history[-1]["eval"]
+res = eval_net.main(["--config-file", cfg_file, "--device", "cpu", "--dataset",
+                     "refcoco-unc-val", "--max-images", "1", "--weights",
+                     os.path.join(run, "model_0000001.pth")])
+assert res["images"] == 1
+assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
+            or (m.split(".")[0] in ("hipie_tpu", "cv2", "PIL", "yaml", "torchvision")
+                and sys.modules[m] is not None)]
+print("NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -174,24 +235,45 @@ def test_vit_training_runs_without_jax():
     _run_without_jax(TRAIN_VIT)
 
 
+def test_train_net_and_eval_net_run_without_jax_or_host_libraries():
+    _run_without_jax(TRAIN_NET)
+
+
 def _port_sources():
     return sorted((REPO / "hipie_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py", REPO / "profile_serve.py", REPO / "msda_bench.py",
         REPO / "vit_bwd_bench.py", REPO / "msda_bwd_bench.py"]
 
 
+def _imports(path):
+    """(line, module, enclosing function or None) of every import in one file."""
+    found = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                found.extend((child.lineno, a.name, func) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                found.append((child.lineno, child.module, func))
+            visit(child, child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), None)
+    return found
+
+
 def _forbidden_imports(path):
     """(line, module) of every import of hipie_tpu, jax or flax in one file."""
-    found = []
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            names = [node.module]
-        else:
-            continue
-        found += [(node.lineno, n) for n in names if n.split(".")[0] in FORBIDDEN]
-    return found
+    return [(line, n) for line, n, _ in _imports(path) if n.split(".")[0] in FORBIDDEN]
+
+
+def _host_lib_imports(path, rel=None):
+    """(line, module, function) of every import of cv2, PIL, yaml or
+    torchvision in one file (``rel``: its path in the repo), but for the
+    allowed one."""
+    rel = rel or str(path.relative_to(REPO))
+    return [(line, n, f) for line, n, f in _imports(path) if n.split(".")[0] in HOST_LIBS
+            and (rel, f, n.split(".")[0]) not in HOST_LIB_ALLOWED]
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
@@ -202,6 +284,43 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}
     assert not bad, bad
+
+
+def test_port_imports_no_host_library_the_card_lacks():
+    """No import of cv2, PIL, yaml or torchvision anywhere in the port or
+    chip_smoke.py, at module level or inside a function, but for the one the
+    port needs: PIL inside image_io.load_image, for images other than PNG."""
+    sources = _port_sources()
+    bad = {str(p.relative_to(REPO)): f for p in sources if (f := _host_lib_imports(p))}
+    assert not bad, bad
+    allowed = [(n, f) for line, n, f in _imports(REPO / "hipie_torch/data/image_io.py")
+               if n.split(".")[0] in HOST_LIBS]
+    assert allowed == [("PIL", "load_image")]
+
+
+def test_the_host_library_check_sees_function_level_imports(tmp_path):
+    probe = tmp_path / "probe.py"
+    probe.write_text("import yaml\n\ndef load_image():\n    import cv2\n"
+                     "    from PIL import Image\n")
+    assert _host_lib_imports(probe, "hipie_torch/data/probe.py") == [
+        (1, "yaml", None), (4, "cv2", "load_image"), (5, "PIL", "load_image")]
+    assert _host_lib_imports(probe, "hipie_torch/data/image_io.py") == [
+        (1, "yaml", None), (4, "cv2", "load_image")]
+
+
+@pytest.mark.parametrize("tool", ["train_net", "eval_net"])
+def test_entry_points_default_to_the_card(tool):
+    """train_net and eval_net run on the card unless --device cpu is given;
+    without a card they raise before any work."""
+    import torch
+
+    from hipie_torch.tools import eval_net, train_net
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the no-card refusal")
+    main = train_net.main if tool == "train_net" else eval_net.main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--config-file", str(REPO / "configs" / "smoke_tiny_coco.yaml")])
 
 
 def test_the_import_check_sees_nested_and_aliased_imports(tmp_path):
