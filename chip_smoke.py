@@ -94,8 +94,27 @@ prints no result line):
     and step time, the fixture's size, whether the native mask IoU (evalcore)
     built, each checkpoint's bytes and seconds to save, the seconds to resume;
     K-B and K-D must each be launched in the phase (counts reset before it).
+10. open-vocab: HIPIEPredictor over HIPIEModel(open_vocab_eval()) at full
+    width (R50, BERT-base, 900 + 10 queries, MaskDINO) in bf16 with seeded
+    weights and a CLIPScorer with full ViT-L-14-336 towers (visual 24 x 1024,
+    16 heads, patch 14 at 336; text 12 x 768) in bf16 from a seeded generator;
+    the toy tokenizers over Pascal-Context-459's names fill the 1536-token
+    prompt, which BERT encodes in at least 3 chunks; OV_CALLS distinct 480x640
+    images padded to the 800x1216 bucket. Every output finite, sem_seg over the
+    459 classes, the CLIP text embeddings built once over the calls, the CLIP
+    visual tower twice a call (the fg masks, then the fg + MaskDINO masks), K-B
+    exactly 21 times a call and nothing else; ms per call, and by CUDA events
+    the chunked BERT, the detector, both MaskCLIP passes and the text
+    embedding; peak memory and parameter counts. Then eval_net.main with
+    model.clip.enabled on phase 9's fixture (coco_panoptic_val): every metric
+    finite.
+11. backbones: HIPIEPredictor over swin_large_coco_panoptic() and
+    convnext_large_coco_panoptic() at full width in bf16 with seeded weights,
+    2 panoptic calls each over the 133 COCO labels: finite outputs, K-B exactly
+    21 times a call; ms per call, the backbone's ms by CUDA events, peak memory
+    and the backbone's parameter count.
 Every shape at which phases 5 and 8 launched K-A, every shape at which phases
-5 to 9 launched K-B, every shape at which phases 7 to 9 launched K-D, and
+5 to 11 launched K-B, every shape at which phases 7 to 9 launched K-D, and
 every shape at which phase 8 launched K-E must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -1009,6 +1028,12 @@ def phase_reference(dev):
     kernels.reset_launch_counts()
 
 
+def msda_per_call(mc) -> int:
+    """MSDeformAttn layers a model pass runs: encoder, decoder, MaskDINO decoder."""
+    return (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
+            + mc.maskdino.dec_layers)
+
+
 def class_maps(L: int, dev):
     from hipie_torch.models.postprocess import ClassMaps
 
@@ -1143,8 +1168,7 @@ def phase_serve(dev, card):
         f"built in {time.perf_counter() - t0:.1f} s")
 
     n_global = sum(1 for b in model.detr.detr.backbone[0].backbone.blocks if b.window_size == 0)
-    n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
-              + mc.maskdino.dec_layers)
+    n_msda = msda_per_call(mc)
     torch.cuda.reset_peak_memory_stats()
     kb_shapes, ka_shapes = [], []
     with torch.inference_mode(), timing_vit_kernel(ka_shapes):
@@ -1248,8 +1272,7 @@ def phase_predict(dev, card):
              for m, model in models.items()}
     rng = np.random.RandomState(SEED + 2)
     images = [rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8) for _ in range(5)]
-    n_msda = (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
-              + mc.maskdino.dec_layers)
+    n_msda = msda_per_call(mc)
 
     calls = []
 
@@ -1719,10 +1742,273 @@ def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
             kb_shapes, kd_shapes)
 
 
+OV_CALLS = 2
+OV_LABEL_SET = "pascal_context_459"
+
+
+@contextlib.contextmanager
+def recording_results(module, name, results):
+    """Within the block, each result of ``module.name`` is appended to ``results``."""
+    inner = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        results.append(out)
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield results
+    finally:
+        setattr(module, name, inner)
+
+
+def check_inference_finite(what, res, n_classes=None):
+    """Every floating output of an InferenceResult finite; sem_seg over n_classes."""
+    for name, t in res._asdict().items():
+        if t is not None and t.is_floating_point() and not torch.isfinite(t).all():
+            raise AssertionError(f"{what}: non-finite {name}")
+    if n_classes is not None and res.sem_seg.shape[0] != n_classes:
+        raise AssertionError(f"{what}: sem_seg has {res.sem_seg.shape[0]} channels, expected "
+                             f"{n_classes}")
+
+
+def phase_open_vocab(dev, card, calls: int = OV_CALLS):
+    """HIPIEPredictor over HIPIEModel(open_vocab_eval()) at full width (R50,
+    BERT-base, 900 + 10 queries, MaskDINO) in bf16 with seeded random weights,
+    a CLIPScorer with full ViT-L-14-336 towers (visual 24 x 1024, 16 heads,
+    patch 14 at 336; text 12 x 768) in bf16 from a seeded generator, the toy
+    tokenizers over Pascal-Context-459's names (all stuff, as its semantic
+    evaluation takes them): ``calls`` distinct 480x640
+    images padded to the 800x1216 bucket, each a 1536-token prompt encoded in
+    chunks. Then eval_net.main with CLIP on over phase 9's fixture. Returns
+    K-B's shapes and its launches per call."""
+    import hipie_torch.models.clip as clip_module
+    import hipie_torch.predictor as predictor_module
+    from hipie_torch import kernels
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.data.datasets_extra import openseg_names_and_things
+    from hipie_torch.data.prompts import build_prompt_spec
+    from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.models.postprocess_clip import CLIPScorer
+    from hipie_torch.models.text.clip_tokenizer import CLIPTokenizer
+    from hipie_torch.models.text.frontend import plan_chunks
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.predictor import HIPIEPredictor
+    from hipie_torch.presets import open_vocab_eval
+    from hipie_torch.utils.weights import random_init_
+
+    base = open_vocab_eval()
+    # the predictor tokenizes to data.max_text_len; the preset's 1536 tokens
+    # are model.text.max_query_len
+    cfg = apply_overrides(base, {"data.max_text_len": base.model.text.max_query_len})
+    mc = cfg.model
+    names, is_thing = openseg_names_and_things(OV_LABEL_SET)
+    # the toy vocabulary without the names' words: they split into character
+    # pieces, and the label set fills the 1536 tokens (as longer real-vocabulary
+    # prompts with synonyms do), so the prompt is truncated and chunked
+    tok = WordPieceTokenizer.toy()
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = HIPIEModel(mc, sep_token_id=tok.dot_token_id).eval()
+    random_init_(model, torch.Generator(device=dev).manual_seed(SEED))
+    model.to(torch.bfloat16)
+    scorer = CLIPScorer(mc.clip, CLIPTokenizer.toy(), dtype=torch.bfloat16,
+                        generator=torch.Generator(device=dev).manual_seed(SEED + 10), device=dev)
+    pred = HIPIEPredictor(cfg, model, tok, bucket=R50_BUCKET, device=dev, clip_scorer=scorer)
+    torch.cuda.synchronize()
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    log(f"[open-vocab] HIPIEModel(open_vocab_eval) {count(model) / 1e6:.1f} M params, CLIP "
+        f"visual {count(scorer.maskclip) / 1e6:.1f} M and text {count(scorer.text) / 1e6:.1f} M, "
+        f"bf16, built in {time.perf_counter() - t0:.1f} s")
+
+    t = time.perf_counter()
+    spec = build_prompt_spec(names, is_thing, tok, cfg.data.max_text_len)
+    spec_ms = 1000.0 * (time.perf_counter() - t)
+    plan = plan_chunks(spec.input_ids, spec.attention_mask, tok.dot_token_id)
+    n_tokens = int(spec.attention_mask.sum())
+    log(f"[open-vocab] {len(names)} classes, prompt {n_tokens} of {cfg.data.max_text_len} "
+        f"tokens, {len(plan.src_spans)} chunks of {[b - a for a, b in plan.src_spans]} tokens, "
+        f"{cfg.data.max_text_len - plan.tgt_spans[-1][1]} tokens after the last separator; "
+        f"the prompt spec (which the predictor builds every call) {spec_ms:.3f} ms on the host")
+    if len(plan.src_spans) < 3:
+        raise AssertionError(f"open-vocab: the prompt split into {len(plan.src_spans)} chunks, "
+                             f"expected at least 3")
+
+    rng = np.random.RandomState(SEED + 3)
+    images = [rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8) for _ in range(calls)]
+    n_msda = msda_per_call(mc)
+    shapes, results, rows = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    with timing_msda(shapes), recording_results(predictor_module, "hipie_inference", results), \
+            timing_calls(model, "encode_text") as bert_ev, \
+            timing_calls(model.detr, "forward") as det_ev, \
+            timing_calls(scorer.maskclip, "forward") as clip_ev, \
+            timing_calls(scorer.text, "forward") as text_ev, \
+            timing_calls(clip_module.CLIPAttention, "forward") as attn_ev:
+        for i, img in enumerate(images):
+            n_clip, n_text, n_attn = len(clip_ev), len(text_ev), len(attn_ev)
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            out = pred(img, test_categories=names, test_is_thing=is_thing)
+            torch.cuda.synchronize()
+            ms = 1000.0 * (time.perf_counter() - t)
+            launches = dict(kernels.LAUNCHES)
+            want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+            if launches != want:
+                raise AssertionError(f"open-vocab call {i}: kernel launches {launches} != {want}")
+            if len(clip_ev) - n_clip != 2:
+                raise AssertionError(f"open-vocab call {i}: the CLIP visual tower ran "
+                                     f"{len(clip_ev) - n_clip} times, expected 2")
+            check_inference_finite(f"open-vocab call {i}", results[-1], len(names))
+            if out["sem_seg"].shape != R50_IMAGE or not np.isfinite(out["instances"]["scores"]).all():
+                raise AssertionError(f"open-vocab call {i}: malformed output")
+            ev = lambda e, a, b: sum(x.elapsed_time(y) for x, y in e[a:b])
+            rows.append({"ms": ms, "bert_ms": ev(bert_ev, i, i + 1), "detector_ms": ev(det_ev, i, i + 1),
+                         "clip_fg_ms": clip_ev[n_clip][0].elapsed_time(clip_ev[n_clip][1]),
+                         "clip_all_ms": clip_ev[n_clip + 1][0].elapsed_time(clip_ev[n_clip + 1][1]),
+                         "clip_text_ms": ev(text_ev, n_text, len(text_ev)),
+                         "text_calls": len(text_ev) - n_text,
+                         "clip_attention_ms": ev(attn_ev, n_attn, len(attn_ev)),
+                         "clip_attention_calls": len(attn_ev) - n_attn})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if rows[0]["text_calls"] == 0 or any(r["text_calls"] for r in rows[1:]) \
+            or len(scorer._text_cache) != 1:
+        raise AssertionError(f"open-vocab: text tower calls per call {[r['text_calls'] for r in rows]}"
+                             f", {len(scorer._text_cache)} cached label sets; expected one build")
+    for i, r in enumerate(rows):
+        log(f"[open-vocab] call {i}: {r['ms']:.3f} ms (host clock, pre- and post-processing "
+            f"included); by CUDA events: chunked BERT {r['bert_ms']:.3f}, detector "
+            f"{r['detector_ms']:.3f}, MaskCLIP fg pass ({mc.transformer.num_queries} masks) "
+            f"{r['clip_fg_ms']:.3f}, all pass ({mc.transformer.num_queries} + "
+            f"{mc.maskdino.num_queries} masks) {r['clip_all_ms']:.3f}, CLIP text embedding "
+            f"{r['clip_text_ms']:.3f} ({r['text_calls']} text-tower calls); CLIP's attention "
+            f"(SDPA with the mask, and its projections) {r['clip_attention_ms']:.3f} over "
+            f"{r['clip_attention_calls']} calls")
+    log(f"[open-vocab] peak memory {peak:.2f} GiB; K-B {n_msda} launches a call; "
+        f"{len(results[-1].scores)} instances; card {card}")
+
+    root = tempfile.mkdtemp(prefix="hipie_openvocab_")
+    old_root = os.environ.get("HIPIE_DATASETS")
+    try:
+        import hipie_torch.data.datasets as datasets
+        from hipie_torch.tools import eval_net, make_tiny_coco, train_net
+
+        with contextlib.redirect_stdout(sys.stderr):
+            make_tiny_coco.main(["--root", root, "--n-train", "1", "--n-val", "4", "--size",
+                                 str(PIPE_SIZE)])
+        os.environ["HIPIE_DATASETS"] = root
+        datasets._register_builtin()
+        config = str(Path(__file__).resolve().parent / SMOKE_CONFIG)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr), timing_msda(shapes):
+            results = eval_net.main(["--config-file", config, "--dataset", "coco_panoptic_val",
+                                     "--device", str(dev), "model.clip.enabled", "True"])
+        eval_s = time.perf_counter() - t0
+        eval_launches = kernels.LAUNCHES["ms_deform_attn"]
+    finally:
+        if old_root is None:
+            os.environ.pop("HIPIE_DATASETS", None)
+        else:
+            os.environ["HIPIE_DATASETS"] = old_root
+        shutil.rmtree(root, ignore_errors=True)
+    bad = [k for k in PIPE_METRICS if not np.isfinite(results.get(k, float("nan")))]
+    if bad or eval_launches != msda_per_call(train_net.build_config(config, "", ()).model) \
+            * results["images"]:
+        raise AssertionError(f"open-vocab eval_net: metrics {bad} not finite, or K-B launched "
+                             f"{eval_launches} times for {results['images']} images")
+    log(f"[open-vocab] eval_net coco_panoptic_val with model.clip.enabled ({results['images']} "
+        f"images, f32, random CLIP towers, {eval_s:.1f} s): "
+        f"{ {k: round(float(results[k]), 4) for k in PIPE_METRICS} }")
+    del pred, model, scorer
+    return shapes, {"calls": rows, "peak_gib": peak, "kb_per_call": n_msda,
+                    "chunks": len(plan.src_spans), "spec_ms": spec_ms}
+
+
+def phase_backbones(dev, card, calls: int = 2):
+    """HIPIEPredictor over swin_large_coco_panoptic() and
+    convnext_large_coco_panoptic() at full width in bf16 with seeded random
+    weights: ``calls`` panoptic calls each over the 133 COCO labels on distinct
+    480x640 images. Returns K-B's shapes and a record per backbone."""
+    import re
+
+    import hipie_torch.models.backbone.swin as swin_module
+    import hipie_torch.predictor as predictor_module
+    from hipie_torch import kernels
+    from hipie_torch.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
+    from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.predictor import HIPIEPredictor
+    from hipie_torch.presets import convnext_large_coco_panoptic, swin_large_coco_panoptic
+    from hipie_torch.utils.weights import random_init_
+
+    labels = [n if thing else f"{n}:stuff"
+              for n, thing in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING)]
+    words = {w for text in COCO_PANOPTIC_133 for w in re.split(r"[^a-z0-9]+", text) if w}
+    tok = WordPieceTokenizer.toy(words=sorted(words))
+    rng = np.random.RandomState(SEED + 4)
+    shapes, records = [], {}
+    for preset in (swin_large_coco_panoptic, convnext_large_coco_panoptic):
+        cfg = preset()
+        mc = cfg.model
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            model = HIPIEModel(mc).eval()
+        random_init_(model, torch.Generator(device=dev).manual_seed(SEED))
+        model.to(torch.bfloat16)
+        pred = HIPIEPredictor(cfg, model, tok, bucket=R50_BUCKET, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        backbone = model.detr.detr.backbone[0].backbone
+        n_backbone = sum(p.numel() for p in backbone.parameters())
+        n_params = sum(p.numel() for p in model.parameters())
+        n_msda = msda_per_call(mc)
+        torch.cuda.reset_peak_memory_stats()
+        times, results = [], []
+        with timing_msda(shapes), recording_results(predictor_module, "hipie_inference", results), \
+                timing_calls(backbone, "forward") as bb_ev, \
+                timing_calls(swin_module.SwinAttention, "forward") as attn_ev:
+            for i in range(calls):
+                img = rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8)
+                kernels.reset_launch_counts()
+                t = time.perf_counter()
+                res = pred(img, test_categories=labels)
+                torch.cuda.synchronize()
+                times.append(1000.0 * (time.perf_counter() - t))
+                launches = dict(kernels.LAUNCHES)
+                want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+                if launches != want:
+                    raise AssertionError(f"{mc.backbone.name} call {i}: kernel launches "
+                                         f"{launches} != {want}")
+                check_inference_finite(f"{mc.backbone.name} call {i}", results[-1], N_CLASSES)
+                _check_prediction(res, "detection")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bb_ms = [a.elapsed_time(b) for a, b in bb_ev]
+        per_call = len(attn_ev) // calls
+        attn_ms = [sum(a.elapsed_time(b) for a, b in attn_ev[i * per_call:(i + 1) * per_call])
+                   for i in range(calls)]
+        log(f"[backbones] {preset.__name__}: backbone {n_backbone / 1e6:.1f} M of "
+            f"{n_params / 1e6:.1f} M params, bf16, built in {build_s:.1f} s; ms per call {[round(t, 3) for t in times]} (host clock, the first "
+            f"includes warm-up), backbone ms by CUDA events {[round(t, 3) for t in bb_ms]}"
+            + (f" (windowed attention, plain torch ops with the qkv and output projections, "
+               f"{[round(t, 3) for t in attn_ms]} over {per_call} blocks a call)"
+               if attn_ev else "")
+            + f"; "
+            f"peak memory {peak:.2f} GiB; K-B {n_msda} launches a call; card {card}")
+        records[mc.backbone.name] = {"ms": times, "backbone_ms": bb_ms, "peak_gib": peak,
+                                     "backbone_params": n_backbone, "kb_per_call": n_msda,
+                                     "attention_ms": attn_ms}
+        del pred, model
+        torch.cuda.empty_cache()
+    return shapes, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1745,6 +2031,10 @@ def main() -> int:
     missing = [k for k, n in pipe["launches"].items() if n == 0]
     if missing:
         raise AssertionError(f"the pipeline phase never launched {missing}: {pipe['launches']}")
+    torch.cuda.empty_cache()
+    ov_kb, open_vocab = phase_open_vocab(dev, card)
+    torch.cuda.empty_cache()
+    bb_kb, backbones = phase_backbones(dev, card)
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
     # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
     # must take K-A, again under vit_remat, and K-E for its gradient: counted
@@ -1757,7 +2047,7 @@ def main() -> int:
                              f"{vit_want}")
     check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
-                                     + vit_kb + pipe_kb if s])
+                                     + vit_kb + pipe_kb + ov_kb + bb_kb if s])
     check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd)
     check_coverage("K-E", vit_bwd_cases, vit_ke)
     # every K-E launch of the ViT-H step on the wgmma design
@@ -1801,11 +2091,16 @@ def main() -> int:
     kb["launches_per_request_by_case"] = {
         c["case"]: kb_per_request[c["shape"]] for c in msda_cases
         if c["locations"] == "uniform" and c["shape"] in kb_per_request}
+    kb["launches_per_open_vocab_call"] = open_vocab["kb_per_call"]
+    for name, rec in backbones.items():
+        kb[f"launches_per_{name}_call"] = rec["kb_per_call"]
     kb["ms_per_request"] = msda_ms_per_request(msda_cases, kb_per_request)
     kb["ms_per_request_local"] = msda_ms_per_request(msda_cases, kb_per_request, local=True)
     log(f"[serve] K-B ms per ViT-H request from the shape times and the counted launches "
         f"{kb['launches_per_request_by_case']}: {kb['ms_per_request']:.4f} "
         f"({kb['ms_per_request_local']:.4f} with local encoder locations); card {card}")
+    log(f"[smoke] all phases in {time.perf_counter() - started:.1f} s (the kernels' build "
+        f"included); card {card}")
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

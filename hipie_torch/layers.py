@@ -42,6 +42,17 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def conv_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """An unpadded ``conv`` of an NHWC map with flax's padding="SAME" (zeros,
+    the odd one at the end): ceil(n / stride) outputs per axis."""
+    pads = []
+    for n, k, s in ((x.shape[2], conv.kernel_size[1], conv.stride[1]),
+                    (x.shape[1], conv.kernel_size[0], conv.stride[0])):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return nchw_to_nhwc(conv(F.pad(nhwc_to_nchw(x), pads)))
+
+
 class MLP(nn.Module):
     """N-layer perceptron with ReLU between layers (box heads, controllers)."""
 

@@ -1,9 +1,12 @@
 """Backbone construction and per-level masks and position embeddings.
 
-Counterpart of hipie_tpu/models/backbone/__init__.py. The ResNet and ViT
-branches of ``build_backbone`` are ported, tested in the JAX package's order;
-TinyCNN, Swin and ConvNeXt raise. As in JAX, every name that starts with
-"resnet" (``"resnet_tiny"`` too) builds a ResNet of ``resnet_depth``.
+Counterpart of hipie_tpu/models/backbone/__init__.py, with its dispatch and
+variant rules: every name that starts with "resnet" (``"resnet_tiny"`` too)
+builds a ResNet of ``resnet_depth``; a ``VIT_VARIANTS`` name a ViTDet; a name
+that starts with "swin" a Swin Transformer (``swin_tiny`` where the name is not
+in ``SWIN_VARIANTS``); a name that starts with "convnext" a ConvNeXt (the part
+after "convnext_", ``tiny`` where that is not in ``CONVNEXT_VARIANTS``).
+Any other name raises, as in JAX (whose TinyCNN branch no name reaches).
 """
 
 from __future__ import annotations
@@ -16,27 +19,42 @@ import torch.nn.functional as F
 
 from hipie_torch.config import BackboneConfig
 from hipie_torch.layers import sine_position_embedding_2d
+from hipie_torch.models.backbone.convnext import (CONVNEXT_VARIANTS, ConvNeXt,
+                                                  convnext_feature_channels)
 from hipie_torch.models.backbone.resnet import ResNet, resnet_feature_channels
+from hipie_torch.models.backbone.swin import (SWIN_VARIANTS, SwinTransformer,
+                                              swin_feature_channels)
 from hipie_torch.models.backbone.vit import VIT_VARIANTS, ViTDet, vit_feature_channels
 
 
 def build_backbone(cfg: BackboneConfig) -> Tuple[nn.Module, Dict[str, int]]:
     """Returns (module mapping an NHWC image -> {resN: NHWC map}, {resN: channels})."""
-    if cfg.name.startswith("resnet"):
+    name = cfg.name
+    if name.startswith("resnet"):
         mod = ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
-        chans = {k: v for k, v in resnet_feature_channels(cfg.resnet_depth).items()
-                 if k in cfg.out_features}
-        return mod, chans
-    if cfg.name not in VIT_VARIANTS:
-        raise NotImplementedError(f"backbone {cfg.name!r} is not ported to hipie_torch yet")
-    embed_dim, depth, num_heads, drop_path = VIT_VARIANTS[cfg.name]
-    mod = ViTDet(img_size=cfg.vit_img_size, patch_size=cfg.vit_patch_size,
-                 embed_dim=embed_dim, depth=depth, num_heads=num_heads,
-                 drop_path_rate=drop_path, window_size=cfg.vit_window_size,
-                 use_rel_pos=cfg.vit_use_rel_pos, out_features=cfg.out_features,
-                 remat=cfg.vit_remat)
-    chans = {k: v for k, v in vit_feature_channels(embed_dim).items() if k in cfg.out_features}
-    return mod, chans
+        chans = resnet_feature_channels(cfg.resnet_depth)
+    elif name in VIT_VARIANTS:
+        embed_dim, depth, num_heads, drop_path = VIT_VARIANTS[name]
+        mod = ViTDet(img_size=cfg.vit_img_size, patch_size=cfg.vit_patch_size,
+                     embed_dim=embed_dim, depth=depth, num_heads=num_heads,
+                     drop_path_rate=drop_path, window_size=cfg.vit_window_size,
+                     use_rel_pos=cfg.vit_use_rel_pos, out_features=cfg.out_features,
+                     remat=cfg.vit_remat)
+        chans = vit_feature_channels(embed_dim)
+    elif name.startswith("swin"):
+        embed, depths, heads, window = SWIN_VARIANTS.get(name, SWIN_VARIANTS["swin_tiny"])
+        mod = SwinTransformer(embed_dim=embed, depths=depths, num_heads=heads,
+                              window_size=window, out_features=cfg.out_features)
+        chans = swin_feature_channels(embed)
+    elif name.startswith("convnext"):
+        variant = name[len("convnext_"):] if "_" in name else "tiny"
+        if variant not in CONVNEXT_VARIANTS:
+            variant = "tiny"
+        mod = ConvNeXt(variant=variant, out_features=cfg.out_features)
+        chans = convnext_feature_channels(variant)
+    else:
+        raise ValueError(f"unknown backbone {name}")
+    return mod, {k: v for k, v in chans.items() if k in cfg.out_features}
 
 
 FEATURE_STRIDES = {"res2": 4, "res3": 8, "res4": 16, "res5": 32, "res6": 64}

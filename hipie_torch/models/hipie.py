@@ -20,7 +20,9 @@ from hipie_torch.models.detector import HIPIEDetector
 from hipie_torch.models.postprocess import (ClassMaps, fg_instance_inference,
                                             grounding_to_od_logits, panoptic_inference,
                                             semantic_inference, transform_probs)
+from hipie_torch.models.postprocess_clip import fuse_all_probs, fuse_fg_probs
 from hipie_torch.models.text.bert import BertEncoder, parallel_det_block_mask
+from hipie_torch.models.text.frontend import encode_long_prompt, plan_chunks
 
 
 class HIPIEModel(nn.Module):
@@ -59,9 +61,24 @@ class HIPIEModel(nn.Module):
 
     def encode_text(self, input_ids, attn_mask, task: str = "detection"):
         """(B, L) token ids and mask -> (B, L, hidden) text features. The
-        parallel_det block mask applies to detection prompts only."""
+        parallel_det block mask applies to detection prompts only. A prompt
+        longer than BERT's positions (open-vocab label sets) is encoded in
+        chunks of at most 510 tokens split at separators (``frontend``), as the
+        reference's BERT wrapper does; positions after the last separator are
+        zero."""
+        parallel = self.parallel_det and task == "detection"
+        if input_ids.shape[1] > self.cfg.text.max_position_embeddings:
+            if parallel:
+                raise NotImplementedError("parallel_det with a prompt longer than "
+                                          "max_position_embeddings")
+            ids, mask = input_ids.cpu().numpy(), attn_mask.cpu().numpy()
+            return torch.cat([
+                encode_long_prompt(self.text_encoder,
+                                   plan_chunks(ids[i], mask[i], self.sep_token_id),
+                                   ids.shape[1], input_ids.device)
+                for i in range(ids.shape[0])])
         block_mask = None
-        if self.parallel_det and task == "detection":
+        if parallel:
             block_mask = parallel_det_block_mask(input_ids, self.sep_token_id,
                                                  self.cls_token_id, self.pad_token_id)
         return self.text_encoder(input_ids, attn_mask, block_mask)
@@ -104,12 +121,19 @@ class InferenceResult(NamedTuple):
 def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConfig,
                     model_cfg: ModelConfig, image_index: int = 0, task: str = "detection",
                     has_thing: bool = True,
-                    pad_mask_s4: Optional[torch.Tensor] = None) -> InferenceResult:
+                    pad_mask_s4: Optional[torch.Tensor] = None,
+                    clip_fn=None, clip_overlap: Optional[torch.Tensor] = None,
+                    images01: Optional[torch.Tensor] = None) -> InferenceResult:
     """Fuse fg and bg branches into instance / semantic / panoptic results for one
     image (reference hipie_img.py inference, with its defaults use_bg_for_pano=True
     and transform_eval=True). Grounding keeps the one best instance and gives no
-    semantic or panoptic map. CLIP fusion and language-derived bg queries are
-    not ported yet."""
+    semantic or panoptic map. Language-derived bg queries are not ported yet.
+
+    With ``clip_fn`` (MODEL.CLIP.ENABLED; ``CLIPScorer.make_clip_fn`` gives it
+    and ``clip_overlap``), MaskCLIP probabilities are ensembled into the fg
+    instance scores (a pass over the fg masks, hipie_img.py:596-611) and into
+    the panoptic and semantic class probabilities (a pass over the masks those
+    take, :736-751). ``images01`` (1, H, W, 3) is the padded canvas in [0, 1]."""
     i = image_index
     n_bg = model_cfg.transformer.num_bg_queries
     fg_logits = outputs["pred_logits"][i][n_bg:]
@@ -118,11 +142,18 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
     iou = outputs.get("pred_boxious")
     iou_i = iou[i][n_bg:] if iou is not None else None
 
+    clip_prob = None
+    if clip_fn is not None and task == "detection":
+        fg_cls = grounding_to_od_logits(fg_logits, maps, mode="FG" if has_thing else None,
+                                        max_pool=test_cfg.max_pool_tokens)
+        clip_prob = fuse_fg_probs(fg_cls, clip_fn(images01, fg_masks[None]), clip_overlap,
+                                  maps.is_thing, iou_i, model_cfg.clip, test_cfg.transform_eval)
+
     max_det = test_cfg.detections_per_image if task == "detection" else 1
     inst = fg_instance_inference(fg_logits, fg_boxes, fg_masks, iou_i, maps,
                                  max_detections=max_det,
                                  nms_thresh=test_cfg.nms_thresh, has_thing=has_thing,
-                                 max_pool=test_cfg.max_pool_tokens)
+                                 max_pool=test_cfg.max_pool_tokens, clip_prob=clip_prob)
     if task != "detection":
         return InferenceResult(scores=inst.scores, classes=inst.classes, boxes=inst.boxes,
                                mask_logits=inst.mask_logits, sem_seg=None, panoptic=None,
@@ -147,6 +178,9 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
                                                      device=bg_cls.device)])
     prob = transform_probs(all_cls, temperature=test_cfg.pano_temperature,
                            transform_eval=test_cfg.transform_eval)
+    if clip_fn is not None:
+        prob = fuse_all_probs(prob, clip_fn(images01, all_masks[None]), clip_overlap,
+                              model_cfg.clip)
     if drop is not None:
         prob = prob.masked_fill(drop[:, None], 0.0)
         all_masks = all_masks.masked_fill(drop[:, None, None], -1e4)

@@ -55,13 +55,19 @@ class InstanceOutput(NamedTuple):
 
 def fg_instance_inference(token_logits, boxes_cxcywh, mask_logits, iou_logits, maps: ClassMaps,
                           max_detections: int = 100, nms_thresh: float = 0.7,
-                          has_thing: bool = True, max_pool: bool = False) -> InstanceOutput:
-    """Reference inference() fg path for one image."""
-    cls_logits = grounding_to_od_logits(token_logits, maps, mode="FG" if has_thing else None,
-                                        max_pool=max_pool)
-    prob = cls_logits.sigmoid()
-    if iou_logits is not None:
-        prob = (prob * iou_logits.float().sigmoid()).sqrt()
+                          has_thing: bool = True, max_pool: bool = False,
+                          clip_prob: Optional[torch.Tensor] = None) -> InstanceOutput:
+    """Reference inference() fg path for one image. ``clip_prob`` (Q, C), the
+    CLIP-fused probabilities (``postprocess_clip.fuse_fg_probs``, the iou mix
+    included), replaces the detector's."""
+    if clip_prob is not None:
+        prob = clip_prob
+    else:
+        cls_logits = grounding_to_od_logits(token_logits, maps,
+                                            mode="FG" if has_thing else None, max_pool=max_pool)
+        prob = cls_logits.sigmoid()
+        if iou_logits is not None:
+            prob = (prob * iou_logits.float().sigmoid()).sqrt()
     boxes_xyxy = box_cxcywh_to_xyxy(boxes_cxcywh.float())
     keep = nms_keep_mask(boxes_xyxy, prob.amax(1), prob.argmax(1), nms_thresh)
     flat = prob.masked_fill(~keep[:, None], float("-inf")).reshape(-1)

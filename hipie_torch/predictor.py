@@ -43,13 +43,17 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 class HIPIEPredictor:
     """Runs ``model`` (a hipie_torch HIPIEModel, in its own dtype) on one image
     padded to ``bucket``. The model is moved to ``device``, the card unless the
-    caller passes ``device="cpu"``; without a card the default raises. CLIP
-    ensembling and language-derived bg queries are not ported yet and raise."""
+    caller passes ``device="cpu"``; without a card the default raises.
+    Language-derived bg queries are not ported yet and raise.
+
+    With MODEL.CLIP.ENABLED, detection calls ensemble MaskCLIP scores into the
+    results through ``clip_scorer`` (``postprocess_clip.CLIPScorer``: the
+    frozen CLIP towers and the per-label-set text-embedding cache); without
+    one, random-init towers with the toy CLIP tokenizer are built, and that is
+    printed."""
 
     def __init__(self, cfg: HIPIEConfig, model: HIPIEModel, tokenizer: WordPieceTokenizer,
-                 bucket: Tuple[int, int] = (800, 1216), device="cuda"):
-        if cfg.model.clip.enabled:
-            raise NotImplementedError("MODEL.CLIP (open-vocab CLIP ensembling) is not ported yet")
+                 bucket: Tuple[int, int] = (800, 1216), device="cuda", clip_scorer=None):
         if cfg.model.bg_query_from_lang:
             raise NotImplementedError("language-derived bg queries are not ported yet")
         self.device = torch.device(device)
@@ -60,6 +64,15 @@ class HIPIEPredictor:
         self.model = model.to(self.device)
         self.tok = tokenizer
         self.bucket = bucket
+        self.clip_scorer = clip_scorer
+        if cfg.model.clip.enabled and clip_scorer is None:
+            from hipie_torch.models.postprocess_clip import CLIPScorer
+            from hipie_torch.models.text.clip_tokenizer import CLIPTokenizer
+
+            print("[predictor] MODEL.CLIP.ENABLED with no CLIPScorer given: building "
+                  "RANDOM-INIT CLIP towers (pass a clip_scorer built from open_clip weights "
+                  "for real open-vocab scores)")
+            self.clip_scorer = CLIPScorer(cfg.model.clip, CLIPTokenizer.toy(), device=self.device)
 
     def _run(self, spec: PromptSpec, img: np.ndarray, task: str,
              has_thing: bool) -> Tuple[InferenceResult, Tuple[int, int]]:
@@ -70,13 +83,22 @@ class HIPIEPredictor:
         padded, pad_mask = pad_to_bucket(resized, self.bucket)
         to_dev = lambda a: torch.from_numpy(np.asarray(a)).to(dev)
         maps = spec.class_maps(dev)
+        clip_fn = clip_overlap = None
+        if cfg.model.clip.enabled and task == "detection":
+            # synonym groups: a name with commas lists synonyms (hipie_img.py:818)
+            clip_fn, clip_overlap = self.clip_scorer.make_clip_fn(
+                [n.split(",") for n in spec.class_names])
         with torch.inference_mode():
             pad = to_dev(pad_mask[None])
-            out = self.model(to_dev(padded[None]), pad, to_dev(spec.input_ids[None]).long(),
+            images = to_dev(padded[None])
+            out = self.model(images, pad, to_dev(spec.input_ids[None]).long(),
                              to_dev(spec.attention_mask[None]), torch.tensor([[h, w]], device=dev),
                              task=task)
+            # CLIP sees the padded canvas in [0, 1]
+            images01 = None if clip_fn is None else (images.float() / 255.0).clamp(0.0, 1.0)
             res = hipie_inference(out, maps, cfg.test, cfg.model, task=task,
-                                  has_thing=has_thing, pad_mask_s4=pad[0][::4, ::4])
+                                  has_thing=has_thing, pad_mask_s4=pad[0][::4, ::4],
+                                  clip_fn=clip_fn, clip_overlap=clip_overlap, images01=images01)
         return res, (h, w)
 
     @staticmethod

@@ -4,7 +4,8 @@ The port's twin of tools/eval_net.py (reference train_net.py --eval-only:
 Trainer.test + inference_on_dataset + the evaluator zoo):
 
     python -m hipie_torch.tools.eval_net --config-file configs/overfit_tiny.yaml \\
-        --weights run/model_0001500.pth --dataset coco_panoptic_train [--device cpu]
+        --weights run/model_0001500.pth --dataset coco_panoptic_train [--device cpu] \\
+        [model.clip.enabled True ...]
 
 The model is HIPIEModel(cfg.model) with random weights from ``cfg.seed``,
 then ``--weights`` (a HIPIE state_dict under the reference's names, or a
@@ -31,6 +32,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     p.add_argument("--max-images", type=int, default=0)
     p.add_argument("--tasks", default="bbox,segm")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("opts", nargs="*", default=[], help="config overrides: key value ...")
     args = p.parse_args(argv)
 
     import torch
@@ -47,7 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     from hipie_torch.utils.weights import random_init_
 
     dev = _device_of(args.device)
-    cfg = build_config(args.config_file, args.preset, ())
+    cfg = build_config(args.config_file, args.preset, args.opts)
     tok = build_tokenizer(args.vocab)
     with torch.device(dev):
         model = HIPIEModel(cfg.model).eval()

@@ -289,6 +289,43 @@ def inv_convnext(tree: Dict[str, Any], prefix: str, sd: SD) -> None:
             inv_norm(tree[f"out_norm{s}"], f"{prefix}norm{s}", sd)
 
 
+def _inv_clip_block(tree: Dict[str, Any], p: str, sd: SD) -> None:
+    inv_norm(tree["ln_1"], f"{p}.ln_1", sd)
+    inv_mha(tree["attn"], f"{p}.attn", sd)
+    inv_norm(tree["ln_2"], f"{p}.ln_2", sd)
+    inv_linear(tree["mlp_fc"], f"{p}.mlp.c_fc", sd)
+    inv_linear(tree["mlp_proj"], f"{p}.mlp.c_proj", sd)
+
+
+def _blocks(tree: Dict[str, Any]) -> List[Any]:
+    return [tree[f"blocks_{i}"] for i in range(sum(k.startswith("blocks_") for k in tree))]
+
+
+def inv_clip(params: Dict[str, Any]) -> SD:
+    """Inverse of converter.convert_clip: {visual, text, logit_scale} (the JAX
+    package's CLIPVisual and CLIPText parameter trees) -> an open_clip state
+    dict (visual.conv1, visual.transformer.resblocks.N.*, token_embedding,
+    transformer.resblocks.N.*, ln_final, text_projection, logit_scale)."""
+    sd: SD = {}
+    v = params["visual"]
+    inv_conv(v["conv1"], "visual.conv1", sd)
+    for name in ("class_embedding", "positional_embedding", "proj"):
+        sd[f"visual.{name}"] = _np(v[name])
+    inv_norm(v["ln_pre"], "visual.ln_pre", sd)
+    inv_norm(v["ln_post"], "visual.ln_post", sd)
+    for i, blk in enumerate(_blocks(v)):
+        _inv_clip_block(blk, f"visual.transformer.resblocks.{i}", sd)
+    t = params["text"]
+    inv_embed(t["token_embedding"], "token_embedding", sd)
+    sd["positional_embedding"] = _np(t["positional_embedding"])
+    sd["text_projection"] = _np(t["text_projection"])
+    inv_norm(t["ln_final"], "ln_final", sd)
+    for i, blk in enumerate(_blocks(t)):
+        _inv_clip_block(blk, f"transformer.resblocks.{i}", sd)
+    sd["logit_scale"] = _np(params["logit_scale"])
+    return sd
+
+
 def export_hipie_checkpoint(params: Dict[str, Any], cfg) -> SD:
     """Full hipie_tpu param tree -> reference-named torch-layout state_dict.
 

@@ -594,3 +594,83 @@ def test_flat4_matches_fused(dev, dtype, q):
     else:
         tol = 2 ** -9 * (value.float().abs().max().item() + 2 * want.float().abs().max().item())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+# Open-vocab serving and the new backbones on the card (tiny config, f32).
+def _tiny_open_vocab(backbone="resnet_tiny", text_len=16):
+    from hipie_torch.config import apply_overrides, tiny_test_config
+
+    return apply_overrides(tiny_test_config(), {
+        "data.min_size_test": 48, "data.max_size_test": 96, "data.max_text_len": text_len,
+        "model.clip.enabled": True, "test.max_pool_tokens": True, "test.bg_cls_agnostic": True,
+        "test.use_bg_for_pano": False, "model.backbone.name": backbone})
+
+
+def _launches_per_call(pred, cats):
+    img = np.random.RandomState(0).randint(0, 256, (50, 80, 3)).astype(np.uint8)
+    kernels.reset_launch_counts()
+    res = pred(img, test_categories=cats, score_thresh=-1.0)
+    torch.cuda.synchronize()
+    assert np.isfinite(res["instances"]["scores"]).all() and res["sem_seg"].shape == (50, 80)
+    return dict(kernels.LAUNCHES)
+
+
+@pytest.mark.parametrize("backbone", ["resnet_tiny", "swin_narrow", "convnext_narrow"])
+def test_open_vocab_predictor_launches_kb(dev, backbone, monkeypatch):
+    """The tiny open-vocab predictor on the card (a 640-token prompt encoded in
+    chunks, narrow CLIP towers), on a ResNet and on narrow Swin and ConvNeXt
+    backbones: K-B once per MSDeformAttn layer a call, no other kernel."""
+    import hipie_torch.models.backbone.convnext as convnext
+    import hipie_torch.models.backbone.swin as swin
+    from hipie_torch.models.clip import CLIPText, CLIPVisual
+    from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.models.postprocess_clip import CLIPScorer
+    from hipie_torch.models.text.clip_tokenizer import CLIPTokenizer
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.predictor import HIPIEPredictor
+    from hipie_torch.utils.weights import random_init_
+
+    monkeypatch.setitem(swin.SWIN_VARIANTS, "swin_narrow", (16, (2, 2, 2, 2), (2, 2, 4, 4), 4))
+    monkeypatch.setitem(convnext.CONVNEXT_VARIANTS, "narrow", ((1, 1, 2, 1), (8, 16, 32, 64)))
+    cfg = _tiny_open_vocab(backbone, text_len=640)
+    tok = WordPieceTokenizer.toy(words=["person", "dog"])
+    model = HIPIEModel(cfg.model, sep_token_id=tok.dot_token_id).eval()
+    random_init_(model, torch.Generator().manual_seed(0))
+    scorer = CLIPScorer(cfg.model.clip, CLIPTokenizer.toy(), visual=CLIPVisual(32, 8, 32, 2, 2, 16),
+                        text=CLIPText(600, 77, 32, 2, 2, 16), device=dev)
+    pred = HIPIEPredictor(cfg, model, tok, bucket=(64, 96), device=dev, clip_scorer=scorer)
+    cats = [f"{w}{i}" + (":stuff" if i % 3 == 0 else "") for i in range(100)
+            for w in ("person", "dog")]
+    n_msda = sum(1 for m in model.modules() if type(m).__name__ == "MSDeformAttn")
+    want = {k: n_msda if k == "ms_deform_attn" else 0 for k in kernels.LAUNCHES}
+    assert _launches_per_call(pred, cats) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_mask", [900, 1200])
+def test_clip_masked_attention_matches_the_cpu(dev, dtype, n_mask):
+    """CLIP's masked attention (SDPA with the MaskCLIP mask: mask tokens see
+    the CLS token and their in-mask patches, nobody sees a mask token; one mask
+    blocks every patch) at the open-vocab phase's token counts, n_mask + 1 +
+    576, width 1024, 16 heads: on the card against its f32 run on the CPU.
+    f32: summation order only (relative norm 1e-5). bf16: inputs, weights and
+    the output rounded to bf16 (2^-9 relative each): 1e-2."""
+    from hipie_torch.models.clip import CLIPAttention
+
+    attn = CLIPAttention(1024, 16).eval()
+    g = torch.Generator().manual_seed(n_mask)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.normal_(0.0, 1024 ** -0.5 if p.ndim == 2 else 0.02, generator=g)
+    t = n_mask + 1 + 576
+    x = torch.randn(1, t, 1024, generator=g)
+    mask = torch.zeros(1, t, t, dtype=torch.bool)
+    mask[:, :, :n_mask] = True
+    mask[:, :n_mask, n_mask + 1:] = torch.rand(1, n_mask, 576, generator=g) < 0.6
+    mask[:, 0, n_mask + 1:] = True
+    with torch.no_grad():
+        want = attn(x, mask)
+        got = attn.to(dev, dtype)(x.to(dev, dtype), mask.to(dev)).float().cpu()
+    assert torch.isfinite(got).all()
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel

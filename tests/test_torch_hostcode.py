@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's host modules give what the originals give.
 
 hipie_torch keeps its own config, presets, tokenizer, prompt builders, label
-spaces, ``pad_to_bucket``, checkpoint export and event storage, so that it imports nothing of
+spaces, ``pad_to_bucket``, checkpoint export, event storage, the CLIP
+tokenizer, the long-prompt chunk plan and the SAM hooks, so that it imports nothing of
 hipie_tpu. Each check here runs a copy and its original on the same inputs and
 asks for equality: exact, since both are the same host code over numpy.
 """
@@ -243,3 +244,68 @@ def test_dataset_registry_and_label_files_are_the_same():
             continue
         assert tdx.get_openseg_labels(name) == jdx.get_openseg_labels(name), name
         assert tdx.openseg_names_and_things(name) == jdx.openseg_names_and_things(name), name
+
+
+CLIP_TEXTS = ["a photo of a dog.", "There is the cat in the scene", "a large person",
+              "THE   dog's tail, left!", "unknownword 42 ok", "", "dog " * 200]
+
+
+def test_clip_tokenizer_is_the_same():
+    """The toy merges, the byte table and the ids, truncation with eot last."""
+    import hipie_torch.models.text.clip_tokenizer as tct
+    import hipie_tpu.models.text.clip_tokenizer as jct
+
+    tok, jtok = tct.CLIPTokenizer.toy(), jct.CLIPTokenizer.toy()
+    assert tok.encoder == jtok.encoder and tok.bpe_ranks == jtok.bpe_ranks
+    assert tct.bytes_to_unicode() == jct.bytes_to_unicode()
+    np.testing.assert_array_equal(tok(CLIP_TEXTS), jtok(CLIP_TEXTS))
+    for t in CLIP_TEXTS:
+        assert tok.encode_text(t) == jtok.encode_text(t)
+
+
+def test_clip_tokenizer_from_merges_file_is_the_same(tmp_path):
+    import hipie_torch.models.text.clip_tokenizer as tct
+    import hipie_tpu.models.text.clip_tokenizer as jct
+
+    merges = "#version: 0.2\n" + "\n".join(
+        f"{a} {b}" for a, b in (("d", "o"), ("do", "g</w>"), ("c", "a"), ("ca", "t</w>"),
+                                ("t", "h"), ("th", "e</w>")))
+    path = tmp_path / "bpe.txt"
+    path.write_text(merges)
+    tok = tct.CLIPTokenizer.from_merges_file(str(path), context_length=16)
+    jtok = jct.CLIPTokenizer.from_merges_file(str(path), context_length=16)
+    assert tok.encoder == jtok.encoder
+    np.testing.assert_array_equal(tok(CLIP_TEXTS), jtok(CLIP_TEXTS))
+
+
+@pytest.mark.parametrize("n_names,max_len", [(40, 640), (200, 1536), (3, 600)])
+def test_plan_chunks_is_the_same(n_names, max_len):
+    """Label-set prompts past BERT's 512 positions: the same chunks, masks and
+    spans; the constants (510, 512, [CLS] 101, EOS 102) are the JAX package's."""
+    import hipie_torch.data.prompts as tprompts
+    import hipie_torch.models.text.frontend as tfe
+    import hipie_tpu.models.text.frontend as jfe
+
+    tok, _ = _tokenizers()
+    names = [f"{w}{i}" for i in range(n_names) for w in WORDS[:3]]
+    spec = tprompts.build_prompt_spec(names, [True] * len(names), tok, max_len)
+    got = tfe.plan_chunks(spec.input_ids, spec.attention_mask, tok.dot_token_id)
+    want = jfe.plan_chunks(spec.input_ids, spec.attention_mask, tok.dot_token_id)
+    np.testing.assert_array_equal(got.chunk_ids, want.chunk_ids)
+    np.testing.assert_array_equal(got.chunk_mask, want.chunk_mask)
+    assert got.src_spans == want.src_spans and got.tgt_spans == want.tgt_spans
+    assert got.chunk_ids.dtype == want.chunk_ids.dtype == np.int32
+    assert (tfe.CLS_ID, tfe.EOS_ID, tfe.PAD_ID) == (jfe.CLS_ID, jfe.EOS_ID, jfe.PAD_ID)
+
+
+def test_sam_vote_labels_is_the_same():
+    import hipie_torch.models.sam as tsam
+    import hipie_tpu.models.sam as jsam
+
+    r = np.random.RandomState(0)
+    sem = r.randint(0, 5, (24, 32))
+    masks = [r.rand(24, 32) > 0.6 for _ in range(4)] + [np.zeros((24, 32), bool)]
+    for frac in (0.0, 0.3, 0.9):
+        assert tsam.vote_labels(masks, sem, 5, frac) == jsam.vote_labels(masks, sem, 5, frac)
+    assert tsam.build_sam() is None and jsam.build_sam() is None       # no segment_anything
+    assert tsam.refine_masks_with_sam(None, sem, np.zeros((1, 4)), (24, 32)) is None

@@ -206,6 +206,48 @@ print("NOJAX_OK")
 """
 
 
+# Open-vocab serving on the tiny config: a prompt past BERT's positions
+# (chunked), CLIP on with narrow random towers, the Swin and ConvNeXt backbones
+# (narrow variants), on the CPU.
+OPEN_VOCAB = BLOCK_JAX_PACKAGE + r"""
+import numpy as np
+import torch
+from hipie_torch.config import apply_overrides, tiny_test_config
+from hipie_torch.models.backbone.convnext import CONVNEXT_VARIANTS
+from hipie_torch.models.backbone.swin import SWIN_VARIANTS
+from hipie_torch.models.clip import CLIPText, CLIPVisual
+from hipie_torch.models.hipie import HIPIEModel
+from hipie_torch.models.postprocess_clip import CLIPScorer
+from hipie_torch.models.text.clip_tokenizer import CLIPTokenizer
+from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+from hipie_torch.predictor import HIPIEPredictor
+from hipie_torch.utils.weights import random_init_
+
+SWIN_VARIANTS["swin_narrow"] = (16, (2, 2, 2, 2), (2, 2, 4, 4), 4)
+CONVNEXT_VARIANTS["narrow"] = ((1, 1, 2, 1), (8, 16, 32, 64))
+tok = WordPieceTokenizer.toy(words=["person", "dog", "sky"])
+img = np.random.RandomState(0).randint(0, 256, (50, 80, 3)).astype(np.uint8)
+cats = [f"{w}{i}" + (":stuff" if i % 3 == 0 else "") for i in range(100)
+        for w in ("person", "dog")]
+for name in ("resnet_tiny", "swin_narrow", "convnext_narrow"):
+    cfg = apply_overrides(tiny_test_config(), {
+        "data.min_size_test": 48, "data.max_size_test": 96, "data.max_text_len": 640,
+        "model.clip.enabled": True, "test.max_pool_tokens": True,
+        "test.bg_cls_agnostic": True, "test.use_bg_for_pano": False,
+        "model.backbone.name": name})
+    model = HIPIEModel(cfg.model, sep_token_id=tok.dot_token_id).eval()
+    random_init_(model, torch.Generator().manual_seed(0))
+    scorer = CLIPScorer(cfg.model.clip, CLIPTokenizer.toy(), visual=CLIPVisual(32, 8, 32, 2, 2, 16),
+                        text=CLIPText(600, 77, 32, 2, 2, 16), device="cpu")
+    pred = HIPIEPredictor(cfg, model, tok, bucket=(64, 96), device="cpu", clip_scorer=scorer)
+    res = pred(img, test_categories=cats, score_thresh=-1.0)
+    assert res["sem_seg"].shape == (50, 80) and np.isfinite(res["instances"]["scores"]).all()
+assert not [m for m in sys.modules if m.startswith(("jax", "flax"))
+            or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
+print("NOJAX_OK")
+"""
+
+
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
@@ -233,6 +275,10 @@ def test_training_runs_without_jax():
 
 def test_vit_training_runs_without_jax():
     _run_without_jax(TRAIN_VIT)
+
+
+def test_open_vocab_and_new_backbones_run_without_jax():
+    _run_without_jax(OPEN_VOCAB)
 
 
 def test_train_net_and_eval_net_run_without_jax_or_host_libraries():

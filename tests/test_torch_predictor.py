@@ -284,7 +284,7 @@ def test_parse_def_string():
     assert things == [True, False, True, False]
 
 
-@pytest.mark.parametrize("override", ["model.clip.enabled", "model.bg_query_from_lang"])
+@pytest.mark.parametrize("override", ["model.bg_query_from_lang"])
 def test_predictor_refuses_unported_options(override):
     from hipie_torch.predictor import HIPIEPredictor
 
