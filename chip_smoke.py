@@ -26,12 +26,14 @@ prints no result line):
     ``flat4`` MSDA formulation (K-C) against the fused one (K-B) at the R50
     encoder shape. K-B runs MSDA_CASES: the ViT-H and R50 encoders (uniform
     and local locations), decoders and MaskDINO decoders in bf16, the R50 ones
-    and the ViT-H encoder in f32, and the training step's three shapes at
-    batch 2 at 1024x1024 and at the pipeline phase's 256x256; its record
+    and the ViT-H encoder in f32, the training step's three shapes at
+    batch 2 at 1024x1024 and at the pipeline phase's 256x256, and the
+    decoders with language-derived bg queries (phase 12: R50, Q = 963;
+    training, Q = 1142); its record
     adds each case's numbers and bound and the encoder's corner-row traffic
     and rate. K-D (the MSDA backward) runs MSDA_BWD_CASES, every training
     shape in bf16 and f32 (the encoder also with local locations; the
-    pipeline phase's 256x256 shapes in bf16),
+    pipeline phase's 256x256 shapes and phase 12's decoder in bf16),
     against the plain version's autograd (``check_msda_bwd``), its plain time
     by CUDA events around eager calls (autograd does not go into a graph),
     naming the design its C entry launched at each ("binned" or "atomics")
@@ -113,9 +115,22 @@ prints no result line):
     2 panoptic calls each over the 133 COCO labels: finite outputs, K-B exactly
     21 times a call; ms per call, the backbone's ms by CUDA events, peak memory
     and the backbone's parameter count.
+12. branches: HIPIEPredictor over r50_coco_panoptic() at full width in bf16
+    with seeded weights and each option that no preset turns on: language-
+    derived bg queries (2 calls; the decoder takes the 53 stuff labels'
+    queries in front, Q = 963), MaskDINO's own encoder (2 calls; K-B 27 a
+    call, 6 of them at the encoder shape), the in-encoder BERT layers and the
+    language content queries (1 call each): K-B exact a call and its queries
+    by shape, finite and shaped results, ms per call. Then BRANCH_TRAIN_STEPS
+    R50 training steps as phase 7's with bg_lang queries (32 slots, their
+    criterion pass at weight 1) and the own encoder: K-B and K-D exactly 27 a
+    step, the decoder at Q = 200 + 32 + 10 + 900; ms per step, peak memory
+    and each named range's device ms by CUDA events (crit_bg_lang among
+    them).
 Every shape at which phases 5 and 8 launched K-A, every shape at which phases
-5 to 11 launched K-B, every shape at which phases 7 to 9 launched K-D, and
-every shape at which phase 8 launched K-E must be one that phase 3 checked.
+5 to 12 launched K-B, every shape at which phases 7 to 9 and 12 launched K-D,
+and every shape at which phase 8 launched K-E must be one that phase 3
+checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -163,6 +178,15 @@ MSDA_M, MSDA_D, MSDA_P = 8, 32, 4
 TRAIN_B = 2
 TRAIN_DEC_Q = 200 + 10 + 900
 TRAIN_MD_Q = 200 + 300
+# The branches phase: with model.bg_query_from_lang the R50 predictor's decoder
+# takes one query per stuff label in front (COCO panoptic: 53), and the
+# training step num_bg_lang_queries (32) after the 200 CDN slots. MaskDINO's
+# own encoder runs at the main encoder's levels and Q = S (r50_encoder and
+# train_encoder).
+N_STUFF = 53
+BG_LANG_SLOTS = 32
+BG_LANG_DEC_Q = N_STUFF + 10 + 900
+TRAIN_BG_LANG_DEC_Q = 200 + BG_LANG_SLOTS + 10 + 900
 # The pipeline phase (configs/smoke_tiny_coco.yaml: R50, batch 2 of 256x256
 # LSJ crops): levels at strides 8 to 64, encoder Q = S = 1360, the decoder's
 # and MaskDINO's queries as in the training step above.
@@ -179,12 +203,15 @@ MSDA_CASES = (
     ("r50_encoder", R50_LEVELS, 1, R50_S, torch.bfloat16, "uniform"),
     ("r50_encoder_local", R50_LEVELS, 1, R50_S, torch.bfloat16, "local"),
     ("r50_decoder", R50_LEVELS, 1, 910, torch.bfloat16, "uniform"),
+    ("r50_decoder_bg_lang", R50_LEVELS, 1, BG_LANG_DEC_Q, torch.bfloat16, "uniform"),
     ("r50_maskdino", R50_LEVELS[::-1], 1, 300, torch.bfloat16, "uniform"),
     ("r50_encoder_f32", R50_LEVELS, 1, R50_S, torch.float32, "uniform"),
     ("r50_decoder_f32", R50_LEVELS, 1, 910, torch.float32, "uniform"),
     ("r50_maskdino_f32", R50_LEVELS[::-1], 1, 300, torch.float32, "uniform"),
     ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
     ("train_decoder", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("train_decoder_bg_lang", VITH_LEVELS, TRAIN_B, TRAIN_BG_LANG_DEC_Q, torch.bfloat16,
+     "uniform"),
     ("train_maskdino", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
     ("pipe_encoder", PIPE_LEVELS, TRAIN_B, PIPE_S, torch.bfloat16, "uniform"),
     ("pipe_decoder", PIPE_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
@@ -198,6 +225,8 @@ MSDA_BWD_CASES = (
     ("train_encoder", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "uniform"),
     ("train_encoder_local", VITH_LEVELS, TRAIN_B, VITH_S, torch.bfloat16, "local"),
     ("train_decoder", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("train_decoder_bg_lang", VITH_LEVELS, TRAIN_B, TRAIN_BG_LANG_DEC_Q, torch.bfloat16,
+     "uniform"),
     ("train_maskdino", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
     ("train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S, torch.float32, "uniform"),
     ("train_decoder_f32", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.float32, "uniform"),
@@ -966,7 +995,7 @@ def check_kd_designs(shapes, counted) -> dict:
     if +got != +want:
         raise AssertionError(f"the train phases launched K-D's designs {dict(got)}, the rule "
                              f"names {dict(want)} at their shapes")
-    log(f"[train] K-D launches by shape and design, both train phases: "
+    log(f"[train] K-D launches by shape and design, all train phases: "
         f"{ {f'{k[0]} {k[1]}': n for k, n in by_shape.items()} }")
     return {f"{k[0]} {k[1]}": n for k, n in by_shape.items()}
 
@@ -1029,9 +1058,11 @@ def phase_reference(dev):
 
 
 def msda_per_call(mc) -> int:
-    """MSDeformAttn layers a model pass runs: encoder, decoder, MaskDINO decoder."""
+    """MSDeformAttn layers a model pass runs: encoder, decoder, MaskDINO decoder,
+    and MaskDINO's own encoder where it does not share the main one."""
     return (mc.transformer.num_encoder_layers + mc.transformer.num_decoder_layers
-            + mc.maskdino.dec_layers)
+            + mc.maskdino.dec_layers
+            + (0 if mc.maskdino.shared_encoder else mc.maskdino.enc_layers))
 
 
 def class_maps(L: int, dev):
@@ -1377,7 +1408,7 @@ def train_launches(cfg, model, img: int = IMG) -> dict:
 
     mc = cfg.model
     tc = mc.transformer
-    n_msda = tc.num_encoder_layers + tc.num_decoder_layers + mc.maskdino.dec_layers
+    n_msda = msda_per_call(mc)
     backbone = model.detr.detr.backbone[0].backbone
     n_ka = 0
     if isinstance(backbone, ViTDet):
@@ -1393,12 +1424,15 @@ def train_launches(cfg, model, img: int = IMG) -> dict:
 
 
 def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
-                steps: int = TRAIN_STEPS):
+                steps: int = TRAIN_STEPS, ranges: bool = False):
     """A config (default r50_coco_panoptic()) trained at full width through
     make_train_step and Trainer: f32 master weights, bf16 autocast compute,
     seeded random init, ``steps`` optimizer steps on synthetic batches, the
-    launches of every kernel exact each step (``train_launches``). Returns
-    (launches and times, K-A, K-B, K-D and K-E shapes)."""
+    launches of every kernel exact each step (``train_launches``). With
+    ``ranges``, each step's named ranges (hipie_torch/train/step.py ``scope``)
+    are timed by CUDA events, as hipie_torch.train.profile times them, and the
+    step syncs at its end. Returns (launches and times, K-A, K-B, K-D and K-E
+    shapes)."""
     import hipie_torch.models.msda_module as msda_module
     import hipie_torch.ops.ms_deform_attn as msda_ops
     import hipie_torch.ops.vit_attention as vit_ops
@@ -1431,16 +1465,24 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         draw = backbone.draw_drop_masks
         backbone.draw_drop_masks = lambda *a: drop_masks.append(draw(*a)) or drop_masks[-1]
     inner = make_train_step(cfg, state, device=dev)
-    per_step, terms = [], []
+    per_step, terms, range_ms = [], [], []
+    timer = None
+    if ranges:
+        from hipie_torch.train.profile import _PhaseTimer
+
+        timer = _PhaseTimer()
 
     def train_step(st, batch, keys):
         k0, s0 = dict(kernels.LAUNCHES), matcher.HOST_SYNCS[0]
         out = inner(st, batch, keys)
         per_step.append(({k: kernels.LAUNCHES[k] - k0[k] for k in k0},
                          matcher.HOST_SYNCS[0] - s0))
+        if timer is not None:
+            torch.cuda.synchronize()
+            range_ms.append(timer.take())
         return out
 
-    weight_fn = step_module.apply_weight_dict
+    weight_fn, scope_fn = step_module.apply_weight_dict, step_module.scope
 
     def recording_weights(losses, lcfg):
         terms.append(dict(losses))
@@ -1453,6 +1495,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     step_module.apply_weight_dict = recording_weights
+    if timer is not None:
+        step_module.scope = timer
     try:
         with timing_calls(msda_module, "ms_deform_attn",
                           lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)), timed=False), \
@@ -1469,7 +1513,7 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
             launches = dict(kernels.LAUNCHES)
             kd_designs = dict(msda_ops.BWD_DESIGN_LAUNCHES)
     finally:
-        step_module.apply_weight_dict = weight_fn
+        step_module.apply_weight_dict, step_module.scope = weight_fn, scope_fn
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
 
     for i, d in enumerate(terms):
@@ -1538,8 +1582,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         f"{len(through_ke) // 4} global blocks' attention checked for a nonzero gradient; "
         f"card {card}")
     return ({"launches": launches, "per_step": per_step[-1][0], "ms_per_step": times,
-             "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs}, ka_shapes, kb_shapes,
-            kd_shapes, ke_shapes)
+             "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs, "range_ms": range_ms},
+            ka_shapes, kb_shapes, kd_shapes, ke_shapes)
 
 PIPE_STEPS = 4
 PIPE_MORE_STEPS = 2
@@ -2004,6 +2048,132 @@ def phase_backbones(dev, card, calls: int = 2):
     return shapes, records
 
 
+BRANCH_CALLS = 2
+BRANCH_TRAIN_STEPS = 3
+# each option of the branches phase, and its predictor calls
+BRANCH_VARIANTS = (
+    ("bg_lang", {"model.bg_query_from_lang": True}, BRANCH_CALLS),
+    ("own_encoder", {"model.maskdino.shared_encoder": False}, BRANCH_CALLS),
+    ("extra_bert", {"model.transformer.use_extra_bert_layers": True}, 1),
+    ("lang_content", {"model.transformer.decouple_tgt": False}, 1),
+)
+# the branch train step: language-derived bg queries with their criterion pass
+# (at the default bg weight of 0 both packages skip it) and MaskDINO's own encoder
+BRANCH_TRAIN = {"model.bg_query_from_lang": True, "model.loss.final_bg_weight": 1.0,
+                "model.maskdino.shared_encoder": False}
+
+
+def phase_branches(dev, card, img: int = IMG, slots: int = TRAIN_N):
+    """The model's option branches at full width in bf16 with seeded random
+    weights: HIPIEPredictor over r50_coco_panoptic() with each of
+    BRANCH_VARIANTS, panoptic calls over the 133 COCO labels on distinct
+    480x640 images (K-B exact, finite and shaped results; with bg_lang the
+    decoder runs the 53 stuff labels' queries in front; the own encoder
+    launches K-B 6 more times a call, at the encoder shape), then
+    BRANCH_TRAIN_STEPS training steps of r50_coco_panoptic() with BRANCH_TRAIN
+    through phase_train (32 bg_lang slots, K-B and K-D exact a step, its named
+    ranges timed; ``img`` and ``slots`` as phase_train takes them). Returns (K-B
+    shapes, K-D shapes, records)."""
+    import re
+
+    import hipie_torch.predictor as predictor_module
+    from hipie_torch import kernels
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
+    from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+    from hipie_torch.predictor import HIPIEPredictor
+    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.utils.weights import random_init_
+
+    labels = [n if thing else f"{n}:stuff"
+              for n, thing in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING)]
+    if sum(not t for t in COCO_PANOPTIC_IS_THING) != N_STUFF:
+        raise AssertionError("COCO panoptic's stuff count changed")
+    words = {w for text in COCO_PANOPTIC_133 for w in re.split(r"[^a-z0-9]+", text) if w}
+    tok = WordPieceTokenizer.toy(words=sorted(words))
+    rng = np.random.RandomState(SEED + 5)
+    kb_shapes, records = [], {}
+    for name, overrides, calls in BRANCH_VARIANTS:
+        cfg = apply_overrides(r50_coco_panoptic(), overrides)
+        mc = cfg.model
+        with torch.device(dev):
+            model = HIPIEModel(mc).eval()
+        random_init_(model, torch.Generator(device=dev).manual_seed(SEED))
+        model.to(torch.bfloat16)
+        pred = HIPIEPredictor(cfg, model, tok, bucket=R50_BUCKET, device=dev)
+        n_msda = msda_per_call(mc)
+        dec_q = (mc.transformer.num_queries + mc.transformer.num_bg_queries
+                 + (N_STUFF if mc.bg_query_from_lang else 0))
+        torch.cuda.reset_peak_memory_stats()
+        times, results, shapes = [], [], []
+        with timing_msda(shapes), recording_results(predictor_module, "hipie_inference", results):
+            for i in range(calls):
+                image = rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8)
+                kernels.reset_launch_counts()
+                before = len(shapes)
+                t = time.perf_counter()
+                res = pred(image, test_categories=labels)
+                torch.cuda.synchronize()
+                times.append(1000.0 * (time.perf_counter() - t))
+                launches = dict(kernels.LAUNCHES)
+                want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+                if launches != want:
+                    raise AssertionError(f"branches {name} call {i}: kernel launches {launches} "
+                                         f"!= {want}")
+                qs = Counter(s[2] for s in shapes[before:])
+                want_q = Counter({R50_S: mc.transformer.num_encoder_layers
+                                  + (0 if mc.maskdino.shared_encoder else mc.maskdino.enc_layers),
+                                  dec_q: mc.transformer.num_decoder_layers,
+                                  mc.maskdino.num_queries: mc.maskdino.dec_layers})
+                if qs != want_q:
+                    raise AssertionError(f"branches {name} call {i}: K-B's queries {dict(qs)}, "
+                                         f"expected {dict(want_q)}")
+                check_inference_finite(f"branches {name} call {i}", results[-1], N_CLASSES)
+                _check_prediction(res, "detection")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kb_shapes += shapes
+        log(f"[branches] {name} ({overrides}): ms per call {[round(t, 3) for t in times]} (host "
+            f"clock, the first includes warm-up); K-B {n_msda} launches a call, decoder Q "
+            f"{dec_q}; peak memory {peak:.2f} GiB; card {card}")
+        records[name] = {"ms": times, "kb_per_call": n_msda, "peak_gib": peak}
+        del pred, model
+        torch.cuda.empty_cache()
+
+    cfg = apply_overrides(r50_coco_panoptic(), BRANCH_TRAIN)
+    if cfg.model.transformer.num_bg_lang_queries != BG_LANG_SLOTS:
+        raise AssertionError("the preset's bg_lang slot count changed")
+    mc = cfg.model
+    train, _, train_kb, train_kd, _ = phase_train(dev, card, cfg=cfg, img=img, slots=slots,
+                                                  steps=BRANCH_TRAIN_STEPS, ranges=True)
+    # K-B's queries over the steps: both encoders at Q = S, the decoder after the
+    # CDN pad and the bg_lang slots, MaskDINO after its seg-DN pad
+    dec_q = (2 * max(mc.dn.dn_number, slots) + BG_LANG_SLOTS + mc.transformer.num_bg_queries
+             + mc.transformer.num_queries)
+    md_q = 2 * max(mc.maskdino.dn_queries, slots) + mc.maskdino.num_queries
+    got_q = Counter(s[2] for s in train_kb if s[2] != sum(h * w for h, w in s[0]))
+    n_enc = len(train_kb) - sum(got_q.values())
+    want_q = Counter({dec_q: mc.transformer.num_decoder_layers * BRANCH_TRAIN_STEPS,
+                      md_q: mc.maskdino.dec_layers * BRANCH_TRAIN_STEPS})
+    n_enc_layers = mc.transformer.num_encoder_layers + (
+        0 if mc.maskdino.shared_encoder else mc.maskdino.enc_layers)
+    if got_q != want_q or n_enc != BRANCH_TRAIN_STEPS * n_enc_layers:
+        raise AssertionError(f"branch train step: K-B's queries {dict(got_q)} and {n_enc} at "
+                             f"Q = S, expected {dict(want_q)}")
+    bgl_ms = [r.get("crit_bg_lang", 0.0) for r in train["range_ms"]]
+    if not all(bgl_ms):
+        raise AssertionError(f"branch train step: the crit_bg_lang range did not run: {bgl_ms}")
+    train["crit_bg_lang_ms"] = bgl_ms
+    log(f"[branches] train step ({BRANCH_TRAIN}): ms per step "
+        f"{[round(t, 1) for t in train['ms_per_step']]} (each ends in a synchronize), peak "
+        f"memory {train['peak_gib']:.4f} GiB, K-B and K-D a step {train['per_step']}; device ms "
+        f"between the named ranges' ends by CUDA events, per step: "
+        f"{[{k: round(v, 2) for k, v in r.items()} for r in train['range_ms']]}; card {card}")
+    records["train"] = train
+    torch.cuda.empty_cache()
+    return kb_shapes + train_kb, train_kd, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2035,6 +2205,8 @@ def main() -> int:
     ov_kb, open_vocab = phase_open_vocab(dev, card)
     torch.cuda.empty_cache()
     bb_kb, backbones = phase_backbones(dev, card)
+    torch.cuda.empty_cache()
+    br_kb, br_kd, branches = phase_branches(dev, card)
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
     # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
     # must take K-A, again under vit_remat, and K-E for its gradient: counted
@@ -2047,8 +2219,8 @@ def main() -> int:
                              f"{vit_want}")
     check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
-                                     + vit_kb + pipe_kb + ov_kb + bb_kb if s])
-    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd)
+                                     + vit_kb + pipe_kb + ov_kb + bb_kb + br_kb if s])
+    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd)
     check_coverage("K-E", vit_bwd_cases, vit_ke)
     # every K-E launch of the ViT-H step on the wgmma design
     from hipie_torch.ops.vit_attention import vit_attention_bwd_design
@@ -2057,7 +2229,9 @@ def main() -> int:
     if ke_designs != {"wgmma"}:
         raise AssertionError(f"the ViT-H train step launched K-E on the designs {ke_designs}, "
                              f"expected only the wgmma one")
-    kd_designs = check_kd_designs(train_kd + vit_kd, [train["kd_designs"], vit_train["kd_designs"]])
+    kd_designs = check_kd_designs(train_kd + vit_kd + br_kd,
+                                  [train["kd_designs"], vit_train["kd_designs"],
+                                   branches["train"]["kd_designs"]])
     launches["ms_deform_attn_bwd"] = train["launches"]["ms_deform_attn_bwd"]
     launches["vit_attention_bwd"] = vit_train["launches"]["vit_attention_bwd"]
     for r in records:
@@ -2094,6 +2268,13 @@ def main() -> int:
     kb["launches_per_open_vocab_call"] = open_vocab["kb_per_call"]
     for name, rec in backbones.items():
         kb[f"launches_per_{name}_call"] = rec["kb_per_call"]
+    for name in ("bg_lang", "own_encoder"):
+        kb[f"launches_per_{name}_call"] = branches[name]["kb_per_call"]
+    for r in (kb, kd):
+        r["launches_per_branch_train_step"] = branches["train"]["per_step"][r["name"]]
+    kd["branch_train_ms_per_step"] = branches["train"]["ms_per_step"]
+    kd["branch_train_peak_gib"] = branches["train"]["peak_gib"]
+    kd["branch_train_crit_bg_lang_ms"] = branches["train"]["crit_bg_lang_ms"]
     kb["ms_per_request"] = msda_ms_per_request(msda_cases, kb_per_request)
     kb["ms_per_request_local"] = msda_ms_per_request(msda_cases, kb_per_request, local=True)
     log(f"[serve] K-B ms per ViT-H request from the shape times and the counted launches "

@@ -31,7 +31,8 @@ def build_backbone(cfg: BackboneConfig) -> Tuple[nn.Module, Dict[str, int]]:
     """Returns (module mapping an NHWC image -> {resN: NHWC map}, {resN: channels})."""
     name = cfg.name
     if name.startswith("resnet"):
-        mod = ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features)
+        mod = ResNet(depth=cfg.resnet_depth, out_features=cfg.out_features,
+                     freeze_at=cfg.frozen_stages + 1)
         chans = resnet_feature_channels(cfg.resnet_depth)
     elif name in VIT_VARIANTS:
         embed_dim, depth, num_heads, drop_path = VIT_VARIANTS[name]

@@ -7,8 +7,12 @@ of bottleneck blocks; block 0 of each stage has a 1x1 strided shortcut. As in
 the JAX package, a stage's stride sits on the 3x3 ``conv2`` (not on ``conv1``
 as with d2's STRIDE_IN_1X1). Module names follow the reference checkpoint
 (``stem.conv1``, ``stem.conv1.norm``, ``res{2..5}.{i}.conv{1,2,3}[.norm]``,
-``.shortcut[.norm]``). The JAX package's ``freeze_at`` is a stop-gradient and
-does nothing at inference, so it has no counterpart here.
+``.shortcut[.norm]``). ``freeze_at`` (``backbone.frozen_stages + 1``) is the
+JAX package's stop-gradient: the map is detached after the stem when it is
+at least 1 and after stage ``res{k}`` when it is at least k, so no gradient
+reaches those stages. It names no parameter: the optimizer's frozen group
+(stem and res2, ``train/optimizer.py``) is set by name, as JAX's is, so a
+stage detached past it keeps a zero gradient and AdamW's weight decay.
 
 Input and outputs are NHWC, as every backbone of the port; the convolutions
 run on the NCHW view of the same memory.
@@ -71,9 +75,10 @@ class ResNet(nn.Module):
     """Maps an NHWC image to {name: NHWC map} for the names in ``out_features``."""
 
     def __init__(self, depth: int = 50, stem_channels: int = 64, base_channels: int = 256,
-                 out_features: Sequence[str] = ("res3", "res4", "res5")):
+                 out_features: Sequence[str] = ("res3", "res4", "res5"), freeze_at: int = 2):
         super().__init__()
         self.out_features = tuple(out_features)
+        self.freeze_at = freeze_at
         self.stem = BasicStem(3, stem_channels)
         in_ch, out_ch, bottleneck_ch = stem_channels, base_channels, base_channels // 4
         self.stage_names = []
@@ -92,9 +97,13 @@ class ResNet(nn.Module):
 
     def forward(self, x) -> Dict[str, torch.Tensor]:
         x = self.stem(nhwc_to_nchw(x.to(self.stem.conv1.weight.dtype)))
+        if self.freeze_at >= 1:
+            x = x.detach()
         outputs = {}
-        for name in self.stage_names:
+        for k, name in enumerate(self.stage_names, start=2):
             x = getattr(self, name)(x)
+            if self.freeze_at >= k:
+                x = x.detach()
             if name in self.out_features:
                 outputs[name] = nchw_to_nhwc(x)
         return outputs

@@ -14,7 +14,9 @@ projection), as the JAX package's inference ``init`` creates exactly those;
 class and IoU heads, the CDN label embedding ``label_enc``, every MaskDINO
 class projection and MaskDINO's dn ``resizer``. ``msda_method`` ("fused" or
 "flat4") reaches every MSDeformAttn: 6 encoder, 6 decoder and 9 MaskDINO
-decoder layers in the presets.
+decoder layers in the presets, and 6 more in MaskDINO's own encoder where
+``maskdino.shared_encoder`` is off (MaskDINO then takes the backbone's maps
+alone, not the main encoder's).
 """
 
 from __future__ import annotations
@@ -57,8 +59,9 @@ class DeformableDETR(nn.Module):
         projs += [ConvGN(in_ch[-1] if i == 0 else tc.d_model, tc.d_model, 3, stride=2)
                   for i in range(n_extra)]
         self.input_proj = nn.ModuleList(projs)
-        self.transformer = VLDeformableTransformer(tc, lang_dim=c.text.hidden_size,
-                                                   msda_method=msda_method)
+        self.transformer = VLDeformableTransformer(
+            tc, lang_dim=c.text.hidden_size, msda_method=msda_method,
+            lang_heads=c.text.num_heads, lang_intermediate=c.text.intermediate_size)
         n_dec = tc.num_decoder_layers
         self.bbox_embed = nn.ModuleList(MLP(tc.d_model, tc.d_model, 4, 3)
                                         for _ in range(n_dec + 1))
@@ -91,7 +94,7 @@ class HIPIEDetector(nn.Module):
             self.label_enc = nn.Embedding(c.num_classes, tc.d_model)
         if c.maskdino.enabled:
             chans = self.detr.feature_channels
-            self.mask_dino = MaskDINOHead(c.maskdino, chans["res3"], chans["res5"], msda_method,
+            self.mask_dino = MaskDINOHead(c.maskdino, chans, msda_method,
                                           train, c.text.hidden_size)
             n_cls = c.maskdino.dec_layers + 2
             self.mask_dino_cls_embed = nn.ModuleDict({
@@ -125,7 +128,8 @@ class HIPIEDetector(nn.Module):
                 maskdino_dn_refs: Optional[torch.Tensor] = None,
                 maskdino_dn_valid: Optional[torch.Tensor] = None,
                 maskdino_attn_mask: Optional[torch.Tensor] = None,
-                drop_path_masks: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+                drop_path_masks: Optional[torch.Tensor] = None,
+                bg_lang_weights: Optional[torch.Tensor] = None) -> Dict[str, Any]:
         """images (B, H, W, 3) normalised NHWC; pad_mask (B, H, W) True = pad;
         lang_hidden (B, L, lang_dim); lang_masks (B, L); image_sizes (B, 2) (h, w);
         task "detection" (class logits per token) or "grounding" (one logit
@@ -137,7 +141,10 @@ class HIPIEDetector(nn.Module):
         ("ctrl_params", f32) and input references ("layer_refs"), and
         MaskDINO's training outputs with every prediction projected against the
         prompt. The CDN arguments (from hipie_torch.models.dn.prepare_cdn) put
-        the noised queries in front of both decoders' queries. ``drop_path_masks``
+        the noised queries in front of both decoders' queries. ``bg_lang_weights``
+        (K, B, L) in training (``hipie_torch.train.bg_lang``) or (K, L) at
+        inference (a stuff class's token weights a row) adds K language-derived
+        bg queries after the dn slots (see models/transformer.py). ``drop_path_masks``
         (a ViT backbone's ``draw_drop_masks``) turns on its drop path; training
         only, as JAX's ``backbone(images, deterministic=not train)``."""
         c = self.cfg
@@ -162,7 +169,8 @@ class HIPIEDetector(nn.Module):
                              enc_class_head=detr.class_embed[str(n_dec)],
                              enc_bbox_head=detr.bbox_embed[n_dec],
                              bbox_heads=detr.bbox_embed[:n_dec], task=task, dn_tgt=dn_tgt,
-                             dn_refs_unact=dn_refs_unact, self_attn_mask=self_attn_mask)
+                             dn_refs_unact=dn_refs_unact, self_attn_mask=self_attn_mask,
+                             bg_lang_weights=bg_lang_weights)
         hs = t["hs"]
         l_hidden = t["lang_hidden"]
         if task == "grounding":
@@ -217,6 +225,8 @@ class HIPIEDetector(nn.Module):
         if c.maskdino.enabled:
             n_cls = c.maskdino.dec_layers + 2
             cls_heads = self.mask_dino_cls_embed
+            if not c.maskdino.shared_encoder:
+                mem_maps = None            # MaskDINO runs its own encoder
             if not train:
                 md = self.mask_dino(features, shared_memory_levels=mem_maps)
                 md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"].to(hs.dtype),

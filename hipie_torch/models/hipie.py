@@ -51,7 +51,7 @@ class HIPIEModel(nn.Module):
         self.text_encoder = BertEncoder(
             vocab_size=t.vocab_size, hidden_size=t.hidden_size, num_layers=t.num_layers,
             num_heads=t.num_heads, intermediate_size=t.intermediate_size,
-            max_position_embeddings=t.max_position_embeddings)
+            max_position_embeddings=t.max_position_embeddings, remat=t.remat)
         self.detr = HIPIEDetector(cfg, msda_method, train)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
@@ -86,10 +86,14 @@ class HIPIEModel(nn.Module):
     def forward(self, images, pad_mask, input_ids, lang_attn_mask, image_sizes,
                 task: str = "detection",
                 lang_hidden: Optional[torch.Tensor] = None, train: bool = False,
+                bg_lang_weights: Optional[torch.Tensor] = None,
                 **dn_kwargs) -> Dict[str, Any]:
         """images (B, H, W, 3) raw RGB (any numeric dtype); pad_mask (B, H, W) True = pad;
         input_ids / lang_attn_mask (B, L); image_sizes (B, 2) valid (h, w).
         Pass ``lang_hidden`` from ``encode_text`` to reuse a fixed prompt's features.
+        ``bg_lang_weights`` adds language-derived bg queries (model.bg_query_from_lang):
+        (K, L) token weights at inference, one row a stuff class, or (K, B, L) from
+        ``hipie_torch.train.bg_lang`` in training; they sit after the dn slots.
         ``train=True`` returns the training outputs; ``dn_kwargs`` are the CDN
         queries (dn_labels, dn_valid, dn_refs_unact, self_attn_mask,
         maskdino_dn_refs, maskdino_dn_valid, maskdino_attn_mask) and a ViT
@@ -101,7 +105,7 @@ class HIPIEModel(nn.Module):
         if lang_hidden is None:
             lang_hidden = self.encode_text(input_ids, lang_attn_mask, task)
         return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task,
-                         train=train, **dn_kwargs)
+                         train=train, bg_lang_weights=bg_lang_weights, **dn_kwargs)
 
 
 class InferenceResult(NamedTuple):
@@ -123,11 +127,15 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
                     has_thing: bool = True,
                     pad_mask_s4: Optional[torch.Tensor] = None,
                     clip_fn=None, clip_overlap: Optional[torch.Tensor] = None,
-                    images01: Optional[torch.Tensor] = None) -> InferenceResult:
+                    images01: Optional[torch.Tensor] = None,
+                    n_bg_lang: int = 0) -> InferenceResult:
     """Fuse fg and bg branches into instance / semantic / panoptic results for one
     image (reference hipie_img.py inference, with its defaults use_bg_for_pano=True
     and transform_eval=True). Grounding keeps the one best instance and gives no
-    semantic or panoptic map. Language-derived bg queries are not ported yet.
+    semantic or panoptic map. ``n_bg_lang`` language-derived bg queries sit in
+    front (query layout [bg_lang | bg | fg], hipie_img.py:560-573): the fg
+    queries start after both bg blocks, and without MaskDINO the bg branch
+    reads the bg_lang block.
 
     With ``clip_fn`` (MODEL.CLIP.ENABLED; ``CLIPScorer.make_clip_fn`` gives it
     and ``clip_overlap``), MaskCLIP probabilities are ensembled into the fg
@@ -136,11 +144,12 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
     take, :736-751). ``images01`` (1, H, W, 3) is the padded canvas in [0, 1]."""
     i = image_index
     n_bg = model_cfg.transformer.num_bg_queries
-    fg_logits = outputs["pred_logits"][i][n_bg:]
-    fg_boxes = outputs["pred_boxes"][i][n_bg:]
-    fg_masks = outputs["pred_masks"][i][n_bg:]
+    fg_start = n_bg + n_bg_lang
+    fg_logits = outputs["pred_logits"][i][fg_start:]
+    fg_boxes = outputs["pred_boxes"][i][fg_start:]
+    fg_masks = outputs["pred_masks"][i][fg_start:]
     iou = outputs.get("pred_boxious")
-    iou_i = iou[i][n_bg:] if iou is not None else None
+    iou_i = iou[i][fg_start:] if iou is not None else None
 
     clip_prob = None
     if clip_fn is not None and task == "detection":
@@ -163,8 +172,9 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
     if md is not None:
         bg_token_logits, bg_mask_logits = md["pred_logits"][i], md["pred_masks"][i]
     else:
-        bg_token_logits = outputs["pred_logits"][i][:n_bg]
-        bg_mask_logits = outputs["pred_masks"][i][:n_bg]
+        n_bg_blk = n_bg_lang if n_bg_lang > 0 else n_bg
+        bg_token_logits = outputs["pred_logits"][i][:n_bg_blk]
+        bg_mask_logits = outputs["pred_masks"][i][:n_bg_blk]
     mode = None if (test_cfg.use_bg_for_pano or test_cfg.bg_cls_agnostic) else "BG"
     bg_cls = grounding_to_od_logits(bg_token_logits, maps, mode=mode,
                                     max_pool=test_cfg.max_pool_tokens)

@@ -1,9 +1,15 @@
-"""MaskDINO "stuff" branch in shared-encoder mode.
+"""MaskDINO "stuff" branch.
 
 Counterpart of hipie_tpu/models/maskdino/model.py (reference
-maskdino_encoder.py and maskdino_decoder.py). The pixel decoder reuses the
-main encoder's stride-8/16/32 memory maps and adds a stride-64 level from res5,
-one FPN step on res3 and the stride-4 mask features. The decoder takes a
+maskdino_encoder.py and maskdino_decoder.py). In shared-encoder mode
+(``shared_encoder``, every preset) the pixel decoder reuses the main encoder's
+stride-8/16/32 memory maps and adds a stride-64 level from res5; in its own
+mode it projects res3/4/5 (1x1 conv + GroupNorm) and res5 again (stride-2 3x3
+conv + GroupNorm) to four levels, adds a sine position embedding and a level
+embedding, and runs ``enc_layers`` deformable encoder layers over them without
+a padding mask (``transformer.encoder.layers.N``, ``transformer.level_embed``,
+``input_proj.0..3``, as the reference names them). Both modes then take one FPN
+step on res3 and make the stride-4 mask features. The decoder takes a
 two-stage top-k over the class embedding, runs the MSDeformAttn decoder layers
 with one shared box MLP, and predicts class embeddings and masks from the last
 layer. In training (``emit_embeds``) it also returns the initial and per-layer
@@ -11,7 +17,7 @@ predictions, the two-stage ("interm") prediction, and mask EMBEDDINGS in place
 of dense masks (the mask head is linear in the pixel features, so the
 criterion builds masks only where it needs them); seg-DN queries go in front,
 their content the resized pooled language feature (``resizer``, built with
-``train=True``). The own-encoder mode is not ported yet.
+``train=True``).
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from hipie_torch.config import MaskDINOConfig
-from hipie_torch.layers import MLP, ConvGN, nchw_to_nhwc, nhwc_to_nchw
+from hipie_torch.layers import MLP, ConvGN, nchw_to_nhwc, nhwc_to_nchw, sine_position_embedding_2d
 from hipie_torch.models.heads import FeatureResizer
-from hipie_torch.models.transformer import DeformableDecoderLayer
+from hipie_torch.models.transformer import (DeformableDecoderLayer, DeformableEncoderLayer,
+                                            encoder_reference_points)
 from hipie_torch.utils.misc import inverse_sigmoid, sine_position_embedding_1d
 
 N_LEVELS = 4
@@ -43,23 +50,69 @@ class Conv2dNorm(nn.Conv2d):
         return nchw_to_nhwc(self.norm(super().forward(nhwc_to_nchw(x))))
 
 
-class MaskDINOPixelDecoder(nn.Module):
-    def __init__(self, c: MaskDINOConfig, res3_channels: int, res5_channels: int):
+class _OwnEncoder(nn.Module):
+    """The pixel decoder's deformable encoder (reference MSDeformAttnTransformerEncoderOnly)."""
+
+    def __init__(self, c: MaskDINOConfig, msda_method: str = "fused"):
         super().__init__()
+        self.level_embed = nn.Parameter(torch.randn(N_LEVELS, c.hidden_dim))
+        self.encoder = nn.Module()
+        self.encoder.layers = nn.ModuleList(
+            DeformableEncoderLayer(c.hidden_dim, c.dim_feedforward, N_LEVELS, c.nheads, 4,
+                                   msda_method)
+            for _ in range(c.enc_layers))
+
+    def forward(self, srcs: Sequence[torch.Tensor]) -> Sequence[torch.Tensor]:
+        """srcs [s8, s16, s32, s64] NHWC -> the encoded maps in the same order."""
+        b = srcs[0].shape[0]
+        dev = srcs[0].device
+        spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
+        pos = [sine_position_embedding_2d(torch.zeros((b, h, w), dtype=torch.bool, device=dev),
+                                          num_pos_feats=s.shape[-1] // 2).to(s.dtype)
+               .reshape(b, h * w, -1) + self.level_embed[lvl].to(s.dtype)
+               for lvl, (s, (h, w)) in enumerate(zip(srcs, spatial_shapes))]
+        memory = torch.cat([s.reshape(b, -1, s.shape[-1]) for s in srcs], 1)
+        pos = torch.cat(pos, 1)
+        enc_ref = encoder_reference_points(spatial_shapes,
+                                           torch.ones((b, N_LEVELS, 2), device=dev))
+        for layer in self.encoder.layers:
+            memory = layer(memory, pos, enc_ref, spatial_shapes, None)
+        maps, start = [], 0
+        for h, w in spatial_shapes:
+            maps.append(memory[:, start:start + h * w].reshape(b, h, w, -1))
+            start += h * w
+        return maps
+
+
+class MaskDINOPixelDecoder(nn.Module):
+    def __init__(self, c: MaskDINOConfig, channels: Dict[str, int], msda_method: str = "fused"):
+        super().__init__()
+        self.shared_encoder = c.shared_encoder
+        projs = {"3": ConvGN(channels["res5"], c.hidden_dim, 3, stride=2)}
         if not c.shared_encoder:
-            raise NotImplementedError("the MaskDINO own-encoder mode is not ported yet")
-        self.input_proj = nn.ModuleDict({"3": ConvGN(res5_channels, c.hidden_dim, 3, stride=2)})
-        self.adapter_1 = Conv2dNorm(res3_channels, c.hidden_dim, 1)
+            projs.update({str(i): ConvGN(channels[n], c.hidden_dim, 1)
+                          for i, n in enumerate(("res3", "res4", "res5"))})
+            self.transformer = _OwnEncoder(c, msda_method)
+        self.input_proj = nn.ModuleDict(dict(sorted(projs.items())))
+        self.adapter_1 = Conv2dNorm(channels["res3"], c.hidden_dim, 1)
         self.layer_1 = Conv2dNorm(c.hidden_dim, c.hidden_dim, 3)
         self.mask_features = nn.Sequential(
             nn.ConvTranspose2d(c.hidden_dim, c.hidden_dim, 2, stride=2),
             nn.GroupNorm(32, c.hidden_dim, eps=1e-5), nn.ReLU(),
             nn.Conv2d(c.hidden_dim, c.mask_dim, 1))
 
-    def forward(self, features: Dict[str, torch.Tensor], shared_memory_levels: Sequence):
-        """shared_memory_levels: [s8, s16, s32] NHWC maps of the main encoder.
-        Returns (mask_features (B, H4, W4, mask_dim), [s64, s32, s16, s8] maps)."""
-        level_maps = list(shared_memory_levels) + [self.input_proj["3"](features["res5"])]
+    def forward(self, features: Dict[str, torch.Tensor],
+                shared_memory_levels: Optional[Sequence] = None):
+        """shared_memory_levels: [s8, s16, s32] NHWC maps of the main encoder
+        (shared-encoder mode) or None (own mode). Returns (mask_features
+        (B, H4, W4, mask_dim), [s64, s32, s16, s8] maps)."""
+        s64 = self.input_proj["3"](features["res5"])
+        if self.shared_encoder:
+            level_maps = list(shared_memory_levels) + [s64]
+        else:
+            srcs = [self.input_proj[str(i)](features[n])
+                    for i, n in enumerate(("res3", "res4", "res5"))]
+            level_maps = self.transformer(srcs + [s64])
         s8 = level_maps[0]
         lateral = self.adapter_1(features["res3"])
         if s8.shape[1:3] != lateral.shape[1:3]:
@@ -193,12 +246,12 @@ class MaskDINODecoder(nn.Module):
 class MaskDINOHead(nn.Module):
     """Pixel decoder + decoder (reference meta_arch/maskdino_head.py)."""
 
-    def __init__(self, c: MaskDINOConfig, res3_channels: int, res5_channels: int,
-                 msda_method: str = "fused", train: bool = False, lang_dim: int = 768):
+    def __init__(self, c: MaskDINOConfig, channels: Dict[str, int], msda_method: str = "fused",
+                 train: bool = False, lang_dim: int = 768):
         super().__init__()
-        self.pixel_decoder = MaskDINOPixelDecoder(c, res3_channels, res5_channels)
+        self.pixel_decoder = MaskDINOPixelDecoder(c, channels, msda_method)
         self.predictor = MaskDINODecoder(c, msda_method, train, lang_dim)
 
-    def forward(self, features, shared_memory_levels, **train_kwargs):
+    def forward(self, features, shared_memory_levels=None, **train_kwargs):
         mask_features, level_maps = self.pixel_decoder(features, shared_memory_levels)
         return self.predictor(level_maps, mask_features, **train_kwargs)

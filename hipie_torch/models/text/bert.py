@@ -3,7 +3,9 @@
 Module and parameter names are Hugging Face's (embeddings.word_embeddings,
 encoder.layer.N.attention.self.query, ...), so the reference's checkpoint
 naming loads with strict=True. Attention logits are f32 with an additive
--1e9 bias for padded and blocked keys.
+-1e9 bias for padded and blocked keys. ``remat`` (``text.remat``; JAX's
+``nn.remat`` of the scanned layer body) runs each layer under
+``torch.utils.checkpoint`` while grad is enabled.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from hipie_torch.layers import gelu
+from hipie_torch.layers import gelu, maybe_checkpoint
 
 
 class BertEmbeddings(nn.Module):
@@ -106,8 +108,10 @@ class BertModel(nn.Module):
 
     def __init__(self, vocab_size: int = 30522, hidden_size: int = 768, num_layers: int = 12,
                  num_heads: int = 12, intermediate_size: int = 3072,
-                 max_position_embeddings: int = 512, type_vocab_size: int = 2):
+                 max_position_embeddings: int = 512, type_vocab_size: int = 2,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.embeddings = BertEmbeddings(vocab_size, hidden_size, max_position_embeddings,
                                          type_vocab_size)
         self.encoder = BertEncoderStack(num_layers, hidden_size, num_heads, intermediate_size)
@@ -122,7 +126,7 @@ class BertModel(nn.Module):
         if block_mask is not None:
             bias = bias + torch.where(block_mask[:, None], zero, neg)
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            x = maybe_checkpoint(self.remat, layer, x, bias)
         return x
 
 

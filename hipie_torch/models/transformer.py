@@ -2,21 +2,36 @@
 
 Counterpart of hipie_tpu/models/transformer.py (reference
 deformable_transformer_dino.py): encoder of [VL bi-attention ->] MSDeformAttn
-layers with grid-centre reference points; two-stage top-k proposals over the
-encoder class head; query layout [dn | bg | fg] with CDN queries in training and
-learned bg queries; decoupled content queries; decoder with iterative box
-refinement and look-forward-twice, the refinement chain detached between layers.
+layers with grid-centre reference points [-> a BERT layer on the text
+features]; two-stage top-k proposals over the encoder class head; query layout
+[dn | bg_lang | bg | fg] with CDN queries in training, language-derived bg
+queries and learned bg queries; decoupled or language-pooled content queries;
+decoder with iterative box refinement and look-forward-twice, the refinement
+chain detached between layers.
 
 Module names follow the reference's state_dict (encoder.layers.N,
-encoder.vl_layers.N.b_attn, decoder.layers.N, decoder.ref_point_head). The box
-heads and the encoder class head live in the detector (detr.bbox_embed,
-detr.class_embed) as in the reference, and are passed in. ``msda_method``
-("fused" or "flat4") goes to every MSDeformAttn. ``remat`` (JAX's
-``nn.remat`` of the encoder and decoder layers) runs each encoder layer, with
-its bi-attention, and each decoder layer under ``torch.utils.checkpoint``
-while grad is enabled. Not ported yet:
-language-derived bg queries, the in-encoder BERT layers and the non-decoupled
-content mode.
+encoder.vl_layers.N.b_attn, encoder.lang_layers.N, decoder.layers.N,
+decoder.ref_point_head). The box heads and the encoder class head live in the
+detector (detr.bbox_embed, detr.class_embed) as in the reference, and are
+passed in. ``msda_method`` ("fused" or "flat4") goes to every MSDeformAttn.
+``remat`` (JAX's ``nn.remat`` of the encoder and decoder layers) runs each
+encoder layer, with its bi-attention and BERT layer, and each decoder layer
+under ``torch.utils.checkpoint`` while grad is enabled.
+
+Branches, as in JAX:
+  * ``use_extra_bert_layers``: after each encoder layer's MSDeformAttn, a BERT
+    layer (geometry of ``cfg.text``: ``lang_heads``, ``lang_intermediate``)
+    runs on the text features with a -1e9 bias on padded tokens
+    (``encoder.lang_layers.N``; ``hipie_torch.utils.export.export_lang_layers``
+    names their weights).
+  * ``bg_lang_weights``: language-derived bg queries, the RAW (pre-fusion)
+    ``lang_hidden`` pooled by these weights and passed through the same
+    ``resizer`` as the pooled-language content: (K, B, L) in training gives one
+    query set shared across the batch, (K, L) at inference one per image. They
+    take zero-box references.
+  * ``decouple_tgt=False``: the last ``num_queries`` slots take the resized
+    pooled language feature as content; the dn, bg_lang and bg slots keep
+    theirs.
 """
 
 from __future__ import annotations
@@ -32,6 +47,7 @@ from hipie_torch.layers import MLP, MultiHeadAttention, maybe_checkpoint
 from hipie_torch.models.fusion import BiAttentionBlock
 from hipie_torch.models.heads import FeatureResizer, agg_lang_feat
 from hipie_torch.models.msda_module import MSDeformAttn
+from hipie_torch.models.text.bert import BertLayer
 from hipie_torch.utils.misc import get_valid_ratio, inverse_sigmoid, sine_position_embedding_1d
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -99,7 +115,8 @@ class _VLLayer(nn.Module):
 
 
 class VLEncoder(nn.Module):
-    def __init__(self, c: TransformerConfig, lang_dim: int, msda_method: str = "fused"):
+    def __init__(self, c: TransformerConfig, lang_dim: int, msda_method: str = "fused",
+                 lang_heads: int = 12, lang_intermediate: int = 3072):
         super().__init__()
         self.remat = c.remat
         n_vl = min(c.num_vl_layers, c.num_encoder_layers) if c.use_vl_fusion else 0
@@ -111,18 +128,34 @@ class VLEncoder(nn.Module):
             _VLLayer(BiAttentionBlock(c.d_model, lang_dim, c.vl_hidden_dim, c.vl_nheads,
                                       init_gamma=1.0 / c.num_encoder_layers))
             for _ in range(n_vl))
+        if c.use_extra_bert_layers:
+            self.lang_layers = nn.ModuleList(BertLayer(lang_dim, lang_heads, lang_intermediate)
+                                             for _ in range(c.num_encoder_layers))
+        else:
+            self.lang_layers = None
 
     def forward(self, memory, l_hidden, pos, enc_ref, spatial_shapes, mask_flat, lang_masks):
+        lang_bias = None
+        if self.lang_layers is not None:
+            lang_bias = torch.where(lang_masks[:, None, None, :] > 0,
+                                    torch.zeros((), device=memory.device), -1e9)
         for i, layer in enumerate(self.layers):
-            if i < len(self.vl_layers):
-                def step(memory, l_hidden, i=i, layer=layer):
-                    memory, l_hidden = self.vl_layers[i].b_attn(memory, l_hidden, lang_masks)
-                    return layer(memory, pos, enc_ref, spatial_shapes, mask_flat), l_hidden
-
-                memory, l_hidden = maybe_checkpoint(self.remat, step, memory, l_hidden)
-            else:
+            vl = self.vl_layers[i].b_attn if i < len(self.vl_layers) else None
+            lang = self.lang_layers[i] if self.lang_layers is not None else None
+            if vl is None and lang is None:
                 memory = maybe_checkpoint(self.remat, layer, memory, pos, enc_ref, spatial_shapes,
                                           mask_flat)
+                continue
+
+            def step(memory, l_hidden, layer=layer, vl=vl, lang=lang):
+                if vl is not None:
+                    memory, l_hidden = vl(memory, l_hidden, lang_masks)
+                memory = layer(memory, pos, enc_ref, spatial_shapes, mask_flat)
+                if lang is not None:
+                    l_hidden = lang(l_hidden, lang_bias)
+                return memory, l_hidden
+
+            memory, l_hidden = maybe_checkpoint(self.remat, step, memory, l_hidden)
         return memory, l_hidden
 
 
@@ -163,16 +196,15 @@ def two_stage_proposals(spatial_shapes: Shapes, valid_ratios, mask_flat):
 class VLDeformableTransformer(nn.Module):
     """Encoder + two-stage selection + decoder."""
 
-    def __init__(self, c: TransformerConfig, lang_dim: int = 768, msda_method: str = "fused"):
+    def __init__(self, c: TransformerConfig, lang_dim: int = 768, msda_method: str = "fused",
+                 lang_heads: int = 12, lang_intermediate: int = 3072):
         super().__init__()
-        if c.use_extra_bert_layers or not c.decouple_tgt:
-            raise NotImplementedError("in-encoder BERT layers and non-decoupled content "
-                                      "queries are not ported yet")
         self.cfg = c
         self.level_embed = nn.Parameter(torch.randn(c.num_feature_levels, c.d_model))
-        self.encoder = VLEncoder(c, lang_dim, msda_method)
+        self.encoder = VLEncoder(c, lang_dim, msda_method, lang_heads, lang_intermediate)
         self.decoder = DINODecoder(c, msda_method)
-        # pooled language -> query content, for grounding without still_tgt_for_both
+        # pooled language -> query content (grounding without still_tgt_for_both,
+        # decouple_tgt=False), and raw tokens -> language-derived bg queries
         self.resizer = FeatureResizer(lang_dim, c.d_model)
         self.enc_output = nn.Linear(c.d_model, c.d_model)
         self.enc_output_norm = nn.LayerNorm(c.d_model, eps=1e-5)
@@ -188,13 +220,15 @@ class VLDeformableTransformer(nn.Module):
                 bbox_heads: Sequence[nn.Module], task: str = "detection",
                 dn_tgt: Optional[torch.Tensor] = None,
                 dn_refs_unact: Optional[torch.Tensor] = None,
-                self_attn_mask: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                self_attn_mask: Optional[torch.Tensor] = None,
+                bg_lang_weights: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """srcs/pos_embeds per level (B, H, W, C), masks (B, H, W) True = pad;
         lang_hidden (B, L, lang_dim), lang_masks (B, L) 1 = valid; task
         "detection" or "grounding". Training passes the CDN queries: dn_tgt
         (B, pad, C) content, dn_refs_unact (B, pad, 4) pre-sigmoid boxes, put in
         front of the queries, and self_attn_mask (Q_total, Q_total) True =
-        blocked."""
+        blocked. ``bg_lang_weights`` (K, B, L) in training or (K, L) at
+        inference adds K language-derived bg queries after the dn slots."""
         c = self.cfg
         b = srcs[0].shape[0]
         dtype = self.level_embed.dtype
@@ -216,6 +250,14 @@ class VLDeformableTransformer(nn.Module):
                                         spatial_shapes, mask_flat, lang_masks)
 
         lang_pool = agg_lang_feat(l_hidden, lang_masks)
+        bg_lang = None
+        if bg_lang_weights is not None:
+            # pooled in f32 from the raw tokens, then resized in the model's dtype
+            eq = "kbl,bld->kd" if bg_lang_weights.dim() == 3 else "kl,bld->bkd"
+            q_lang = torch.einsum(eq, bg_lang_weights.float(), lang_hidden.float())
+            bg_lang = self.resizer(q_lang.to(dtype))
+            if bg_lang.dim() == 2:
+                bg_lang = bg_lang[None].expand(b, -1, -1)
 
         # ---- two-stage proposals ------------------------------------------
         proposals_unact, prop_valid = two_stage_proposals(spatial_shapes, valid_ratios,
@@ -229,19 +271,29 @@ class VLDeformableTransformer(nn.Module):
         topk_coords_unact = enc_coord_unact.gather(1, topk_idx[..., None].expand(-1, -1, 4))
         fg_refs = topk_coords_unact.detach().sigmoid()
 
-        # ---- queries [dn | bg | fg] --------------------------------------
+        # ---- queries [dn | bg_lang | bg | fg] -----------------------------
         tgt = self.tgt_embed.weight[None].expand(b, -1, -1)
         refs = fg_refs
         if c.num_bg_queries > 0:
             tgt = torch.cat([self.tgt_embed_bg.weight[None].expand(b, -1, -1), tgt], 1)
             refs = torch.cat([self.bg_query_refs.weight.float()[None].expand(b, -1, -1), refs], 1)
+        if bg_lang is not None:
+            tgt = torch.cat([bg_lang.to(tgt.dtype), tgt], 1)
+            refs = torch.cat([refs.new_zeros(b, bg_lang.shape[1], 4), refs], 1)
         if dn_tgt is not None:
             tgt = torch.cat([dn_tgt.to(tgt.dtype), tgt], 1)
             refs = torch.cat([dn_refs_unact.float().sigmoid(), refs], 1)
-        # decoupled content: grounding without still_tgt_for_both puts the pooled
-        # language feature into every query slot; detection keeps the embeddings
-        if not c.still_tgt_for_both and task == "grounding":
-            tgt = self.resizer(lang_pool)[:, None, :].expand_as(tgt)
+        if c.decouple_tgt:
+            # grounding without still_tgt_for_both puts the pooled language
+            # feature into every query slot; detection keeps the embeddings
+            if not c.still_tgt_for_both and task == "grounding":
+                tgt = self.resizer(lang_pool)[:, None, :].expand_as(tgt)
+        else:
+            # the matching queries take the pooled language; the slots before them
+            # (dn, bg_lang, bg) keep their content
+            n_fixed = tgt.shape[1] - c.num_queries
+            lang_part = self.resizer(lang_pool)[:, None, :].expand(b, c.num_queries, -1)
+            tgt = torch.cat([tgt[:, :n_fixed], lang_part.to(tgt.dtype)], 1)
         init_reference = refs
 
         # ---- decoder --------------------------------------------------------

@@ -44,7 +44,9 @@ class HIPIEPredictor:
     """Runs ``model`` (a hipie_torch HIPIEModel, in its own dtype) on one image
     padded to ``bucket``. The model is moved to ``device``, the card unless the
     caller passes ``device="cpu"``; without a card the default raises.
-    Language-derived bg queries are not ported yet and raise.
+    With ``model.bg_query_from_lang``, a detection call adds one bg query per
+    stuff label, from that label's token weights (reference
+    prepare_bg_queries_lan, hipie_img.py:336).
 
     With MODEL.CLIP.ENABLED, detection calls ensemble MaskCLIP scores into the
     results through ``clip_scorer`` (``postprocess_clip.CLIPScorer``: the
@@ -54,8 +56,6 @@ class HIPIEPredictor:
 
     def __init__(self, cfg: HIPIEConfig, model: HIPIEModel, tokenizer: WordPieceTokenizer,
                  bucket: Tuple[int, int] = (800, 1216), device="cuda", clip_scorer=None):
-        if cfg.model.bg_query_from_lang:
-            raise NotImplementedError("language-derived bg queries are not ported yet")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("HIPIEPredictor: no CUDA device; pass device='cpu' to run "
@@ -88,17 +88,24 @@ class HIPIEPredictor:
             # synonym groups: a name with commas lists synonyms (hipie_img.py:818)
             clip_fn, clip_overlap = self.clip_scorer.make_clip_fn(
                 [n.split(",") for n in spec.class_names])
+        n_bg_lang, bg_lang_weights = 0, None
+        if cfg.model.bg_query_from_lang and task == "detection":
+            stuff = ~np.asarray(spec.is_thing, bool)
+            n_bg_lang = int(stuff.sum())
+            if n_bg_lang:
+                bg_lang_weights = to_dev(np.asarray(spec.mean_weights)[stuff])
         with torch.inference_mode():
             pad = to_dev(pad_mask[None])
             images = to_dev(padded[None])
             out = self.model(images, pad, to_dev(spec.input_ids[None]).long(),
                              to_dev(spec.attention_mask[None]), torch.tensor([[h, w]], device=dev),
-                             task=task)
+                             task=task, bg_lang_weights=bg_lang_weights)
             # CLIP sees the padded canvas in [0, 1]
             images01 = None if clip_fn is None else (images.float() / 255.0).clamp(0.0, 1.0)
             res = hipie_inference(out, maps, cfg.test, cfg.model, task=task,
                                   has_thing=has_thing, pad_mask_s4=pad[0][::4, ::4],
-                                  clip_fn=clip_fn, clip_overlap=clip_overlap, images01=images01)
+                                  clip_fn=clip_fn, clip_overlap=clip_overlap, images01=images01,
+                                  n_bg_lang=n_bg_lang)
         return res, (h, w)
 
     @staticmethod

@@ -1,6 +1,7 @@
 """Where a training step's time goes, on one card.
 
     python3 -m hipie_torch.train.profile [--preset r50|vit_huge] [--steps 3] [--seed 0]
+        [KEY VALUE ...]
 
 The step is one of those chip_smoke.py's train phases drive: the preset's
 config (r50_coco_panoptic() or vit_huge_coco_panoptic(), with its drop path
@@ -8,11 +9,17 @@ and activation checkpointing) at full width, batch 2 of 1024x1024 canvases
 (hipie_torch/train/synthetic.py), bf16 autocast, seeded random weights. 2
 warm-up steps, then ``--steps`` steps timed by the host clock (each ends in a
 synchronize), the same steps with CUDA events at the step's named ranges
-(hipie_torch/train/step.py ``scope``: cdn, forward, each criterion pass,
-backward, optimizer) for the device time between a range's start and end, and
+(hipie_torch/train/step.py ``scope``: cdn, forward, each criterion pass
+(crit_fg, crit_bg or crit_bg_lang, crit_enc, crit_gt_dn, crit_maskdino,
+crit_maskdino_dn, crit_maskdino_interm), backward, optimizer) for the device
+time between a range's start and end, and
 one step under torch.profiler for the device's busy time (the sum of its
 kernels' and copies' times), idle share and top kernels, with the device time
 and launches of K-A, K-E, K-B and K-D.
+
+KEY VALUE pairs override the preset's config, as train_net's do: for example
+``model.bg_query_from_lang True model.loss.final_bg_weight 1.0`` profiles the
+step with language-derived bg queries and their crit_bg_lang pass.
 
 Prints one line per measurement, then one JSON line.
 """
@@ -65,16 +72,18 @@ class _PhaseTimer:
         return out
 
 
-def profile_step(dev, card, steps: int, seed: int, preset: str = "r50"):
+def profile_step(dev, card, steps: int, seed: int, preset: str = "r50", overrides=None):
     import hipie_torch.train.step as step_module
     from hipie_torch import kernels
+    from hipie_torch.config import apply_overrides
     from hipie_torch.losses import matcher
     from hipie_torch.presets import r50_coco_panoptic, vit_huge_coco_panoptic
     from hipie_torch.train.synthetic import train_batches
     from hipie_torch.utils.rng import GeneratorKeys
 
     make_cfg = {"r50": r50_coco_panoptic, "vit_huge": vit_huge_coco_panoptic}[preset]
-    cfg = dataclasses.replace(make_cfg(), output_dir=tempfile.mkdtemp(prefix="hipie_train_"))
+    cfg = dataclasses.replace(apply_overrides(make_cfg(), dict(overrides or {})),
+                              output_dir=tempfile.mkdtemp(prefix="hipie_train_"))
     state = step_module.create_train_state(cfg, seed=seed, device=dev)
     step = step_module.make_train_step(cfg, state, device=dev)
     keys = GeneratorKeys(torch.Generator(device=dev).manual_seed(seed))
@@ -166,6 +175,7 @@ def main(argv=None) -> int:
     ap.add_argument("--preset", choices=("r50", "vit_huge"), default="r50")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("opts", nargs="*", default=[], help="KEY VALUE config overrides")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile: no CUDA device")
@@ -173,7 +183,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     card = card_name()
-    out = profile_step(dev, card, args.steps, args.seed, args.preset)
+    out = profile_step(dev, card, args.steps, args.seed, args.preset,
+                       dict(zip(args.opts[::2], args.opts[1::2])))
     print(json.dumps(out))
     return 0
 

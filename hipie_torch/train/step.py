@@ -3,9 +3,14 @@ criterion passes -> weighted total -> backward -> clipped AdamW update.
 
 Counterpart of hipie_tpu/train/step.py (reference ddetrs_dn.py coco_forward,
 hipie_img.py's train branch and train_net.py's optimizer wrapper). Query
-layout [dn | bg | fg]: the fg queries are matched by simOTA or the Hungarian
-auction (``loss.matcher``), the bg (stuff) queries by the auction with mask
-costs, the dn slots by their fixed CDN indices; the passes merge with
+layout [dn | bg_lang | bg | fg]: the fg queries are matched by simOTA or the
+Hungarian auction (``loss.matcher``), the bg (stuff) queries by the auction
+with mask costs, the dn slots by their fixed CDN indices. With
+``model.bg_query_from_lang`` the ``num_bg_lang_queries`` language-derived slots
+(``hipie_torch.train.bg_lang``) are supervised against the stuff GTs by their
+fixed class assignment, in a pass that replaces the bg pass at the bg weight
+(the reference runs the bg pass at weight 0, so the gradients are the same).
+The passes merge with
 FINAL_FG/BG/GT_WEIGHT (a zero-weight pass is skipped, as in JAX: it would only
 be multiplied by 0). The encoder-proposal losses ride the gt pass. The MaskDINO
 branch adds its own passes (class 4, mask 5, dice 5, box 5, GIoU 2): matching
@@ -19,7 +24,8 @@ backbone's drop-path masks are drawn before the forward; ``backbone.vit_remat``
 and ``transformer.remat`` checkpoint the blocks and layers (the models read
 them). The step
 is eager; it runs on the card unless the caller passes ``device="cpu"``. Its
-parts carry torch.profiler ranges ("cdn", "forward", "crit_fg", "crit_enc",
+parts carry torch.profiler ranges ("cdn", "forward", "crit_fg", "crit_bg" or
+"crit_bg_lang", "crit_enc",
 "crit_gt_dn", "crit_maskdino", "crit_maskdino_dn", "crit_maskdino_interm",
 "backward", "optimizer"), which ``python3 -m hipie_torch.train.profile`` reads.
 """
@@ -37,6 +43,7 @@ from hipie_torch.losses.criterion import (Targets, apply_weight_dict, criterion_
                                           encoder_loss_pass, merge_loss_dicts)
 from hipie_torch.models.dn import prepare_cdn
 from hipie_torch.models.mask_head import dynamic_conv_param_sizes
+from hipie_torch.train.bg_lang import prepare_bg_lang_queries
 from hipie_torch.train.optimizer import GroupedAdamW
 from hipie_torch.utils.rng import Keys
 
@@ -79,15 +86,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
     ``train=True``; ``keys`` gives every random draw (hipie_torch/utils/rng.py)."""
     mc = cfg.model
     lc = mc.loss
-    if mc.bg_query_from_lang:
-        raise NotImplementedError("language-derived bg queries are not ported yet")
     md_lc = dataclasses.replace(lc, class_weight=4.0, bbox_weight=5.0, giou_weight=2.0,
                                 mask_weight=5.0, dice_weight=5.0)
     weight_nums, bias_nums = dynamic_conv_param_sizes(
         mc.transformer.d_model // 32, mc.mask_head.dynamic_mask_channels,
         mc.mask_head.num_dynamic_layers, mc.mask_head.use_rel_coord)
     n_bg = mc.transformer.num_bg_queries
-    n_match = mc.transformer.num_queries + n_bg
+    n_bgl = mc.transformer.num_bg_lang_queries if mc.bg_query_from_lang else 0
+    n_match = mc.transformer.num_queries + n_bg + n_bgl
     max_matched = mc.max_matched_masks
     bf16 = mc.dtype == "bfloat16"
     # a ViT backbone's drop path: keep masks drawn before the forward, from the
@@ -97,10 +103,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
 
     def loss_fn(batch: TrainBatch, keys: Keys):
         t = batch.targets
-        k_dn, k_fg, k_bg, k_gt, k_md, _k_bgl = keys.split(6)
-        cdn = md_dn = None
+        k_dn, k_fg, k_bg, k_gt, k_md, k_bgl = keys.split(6)
+        cdn = md_dn = bgl = None
         dn_kwargs = {}
         with torch.no_grad(), scope("cdn"):
+            if n_bgl > 0:
+                bgl = prepare_bg_lang_queries(k_bgl, t.labels, t.positive_map, t.is_thing,
+                                              t.valid, batch.lang_mask, mc.num_classes, n_bgl)
+                dn_kwargs["bg_lang_weights"] = bgl.weights
             if mc.dn.enabled:
                 cdn = prepare_cdn(k_dn, t.labels, t.boxes, t.valid, mc.num_classes, n_match,
                                   dn_number=mc.dn.dn_number,
@@ -128,7 +138,8 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
                         batch.image_sizes, task=task, train=True, **dn_kwargs)
 
         pad = cdn.pad_size if cdn is not None else 0
-        start_bg = pad
+        start_bgl = pad
+        start_bg = pad + n_bgl
         start_fg = start_bg + n_bg
 
         def slice_layers(s, e, with_iou):
@@ -156,9 +167,15 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
                     matcher="ota" if lc.matcher == "ota" else "hungarian", **common))
             weights.append(lc.final_fg_weight)
         if lc.final_bg_weight != 0.0:
-            with scope("crit_bg"):
-                passes.append(criterion_pass(k_bg, slice_layers(start_bg, start_fg, False),
-                                             bg_targets, matcher="hungarian", **common))
+            if bgl is not None:
+                with scope("crit_bg_lang"):
+                    passes.append(criterion_pass(
+                        k_bg.fold_in(1), slice_layers(start_bgl, start_bg, False), bg_targets,
+                        matcher="fixed", fixed_assign=bgl.assign, **common))
+            else:
+                with scope("crit_bg"):
+                    passes.append(criterion_pass(k_bg, slice_layers(start_bg, start_fg, False),
+                                                 bg_targets, matcher="hungarian", **common))
             weights.append(lc.final_bg_weight)
         # the encoder proposals' losses: the top-k feeding the decoder is
         # detached, so without them the two-stage heads get no gradient

@@ -170,16 +170,19 @@ def inv_hf_bert(tree: Dict[str, Any], prefix: str, sd: SD) -> None:
               f"{prefix}embeddings.token_type_embeddings", sd)
     inv_norm(tree["embeddings_norm"], f"{prefix}embeddings.LayerNorm", sd)
     for i, layer in enumerate(unstack_trees(tree["layers"]["layer"])):
-        lp = f"{prefix}encoder.layer.{i}"
-        att = layer["attention"]
-        for name in ("query", "key", "value"):
-            inv_dense_general(att[name], f"{lp}.attention.self.{name}", sd)
-        inv_dense_general_out(att["output_dense"],
-                              f"{lp}.attention.output.dense", sd)
-        inv_norm(layer["attention_norm"], f"{lp}.attention.output.LayerNorm", sd)
-        inv_linear(layer["intermediate"], f"{lp}.intermediate.dense", sd)
-        inv_linear(layer["output"], f"{lp}.output.dense", sd)
-        inv_norm(layer["output_norm"], f"{lp}.output.LayerNorm", sd)
+        inv_bert_layer(layer, f"{prefix}encoder.layer.{i}", sd)
+
+
+def inv_bert_layer(layer: Dict[str, Any], lp: str, sd: SD) -> None:
+    """One JAX BertLayer -> Hugging Face BertLayer names under ``lp``."""
+    att = layer["attention"]
+    for name in ("query", "key", "value"):
+        inv_dense_general(att[name], f"{lp}.attention.self.{name}", sd)
+    inv_dense_general_out(att["output_dense"], f"{lp}.attention.output.dense", sd)
+    inv_norm(layer["attention_norm"], f"{lp}.attention.output.LayerNorm", sd)
+    inv_linear(layer["intermediate"], f"{lp}.intermediate.dense", sd)
+    inv_linear(layer["output"], f"{lp}.output.dense", sd)
+    inv_norm(layer["output_norm"], f"{lp}.output.LayerNorm", sd)
 
 
 def inv_d2_resnet(tree: Dict[str, Any], prefix: str, sd: SD) -> None:
@@ -323,6 +326,31 @@ def inv_clip(params: Dict[str, Any]) -> SD:
     for i, blk in enumerate(_blocks(t)):
         _inv_clip_block(blk, f"transformer.resblocks.{i}", sd)
     sd["logit_scale"] = _np(params["logit_scale"])
+    return sd
+
+
+def export_lang_layers(params: Dict[str, Any], cfg) -> SD:
+    """The in-encoder BERT layers (``transformer.use_extra_bert_layers``) of a
+    hipie_tpu param tree, which ``export_hipie_checkpoint`` (like the JAX
+    package's, and its converter) leaves out: encoder layer i's ``lang_layer``
+    -> ``detr.detr.transformer.encoder.lang_layers.{i}.`` + Hugging Face
+    BertLayer's own names (``attention.self.query``, ``attention.output.dense``,
+    ``intermediate.dense``, ``output.LayerNorm``, ...), the port's module tree.
+    The reference nests one BertLayer per encoder layer
+    (deformable_transformer_dino.py:302-351), but no reference checkpoint or
+    converter in this repository fixes the names of those weights; these are
+    the port's choice. Empty without the option."""
+    sd: SD = {}
+    if not cfg.model.transformer.use_extra_bert_layers:
+        return sd
+    tr = params["detr"]["transformer"]
+    steps = []
+    while f"encoder_vl{len(steps)}" in tr:
+        steps.append(tr[f"encoder_vl{len(steps)}"])
+    if "encoder" in tr:
+        steps += unstack_trees(tr["encoder"])
+    for i, step in enumerate(steps):
+        inv_bert_layer(step["lang_layer"], f"detr.detr.transformer.encoder.lang_layers.{i}", sd)
     return sd
 
 

@@ -3,7 +3,8 @@
 ``hipie_torch.utils.export.export_hipie_checkpoint`` (numpy only, the port's
 copy of the JAX package's) turns a hipie_tpu parameter tree, given as numpy
 arrays, into a torch-layout state_dict under the reference's names, which is
-exactly the port's module tree, so a strict load is the whole bridge.
+exactly the port's module tree, so a strict load is the whole bridge;
+``export_lang_layers`` adds the in-encoder BERT layers that it leaves out.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Any, Dict
 
 import torch
 
-from hipie_torch.utils.export import export_hipie_checkpoint
+from hipie_torch.utils.export import export_hipie_checkpoint, export_lang_layers
 
 
 _KEEP_INIT = ("sampling_offsets.bias", "attention_weights.bias")
@@ -38,5 +39,5 @@ def random_init_(model: torch.nn.Module, generator: torch.Generator) -> None:
 def load_from_jax(model: torch.nn.Module, params_np: Dict[str, Any], cfg) -> None:
     """Load ``model.init(...)["params"]`` (as numpy) of the JAX HIPIEModel for config
     ``cfg`` into the port's HIPIEModel; raises on any missing or unexpected key."""
-    sd = export_hipie_checkpoint(params_np, cfg)
+    sd = {**export_hipie_checkpoint(params_np, cfg), **export_lang_layers(params_np, cfg)}
     model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in sd.items()}, strict=True)

@@ -285,12 +285,42 @@ def test_parse_def_string():
 
 
 @pytest.mark.parametrize("override", ["model.bg_query_from_lang"])
-def test_predictor_refuses_unported_options(override):
+def test_predictor_refuses_unported_options(both, override, monkeypatch):
+    """The predictor once refused these options; now each runs and matches JAX's
+    predictor on the fixture's detection image and weights (the options add
+    none). With model.bg_query_from_lang, a detection call puts one bg query
+    per stuff label of CATS (2) in front, from its token weights, and reads fg
+    after both bg blocks. Tolerances as test_run_matches_jax."""
+    import hipie_tpu.data.transforms as jT
+    from hipie_tpu.predictor import HIPIEPredictor as JPredictor
+    from hipie_torch.data.transforms import resize_shortest_edge
+    from hipie_torch.models.hipie import HIPIEModel
     from hipie_torch.predictor import HIPIEPredictor
 
-    cfg = tconfig.apply_overrides(predictor_config(), {override: True})
-    with pytest.raises(NotImplementedError):
-        HIPIEPredictor(cfg, torch.nn.Linear(1, 1), WordPieceTokenizer.toy(), device="cpu")
+    for var in ("HIPIE_MSDA_METHOD", "HIPIE_GELU", "HIPIE_VIT_FLASH", "HIPIE_VIT_ATTN"):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(jT, "resize_shortest_edge", resize_shortest_edge)
+    cfg, tok, model, _, _, _, params, jcfg = both
+    cfg, jcfg = (tconfig.apply_overrides(cfg, {override: True}),
+                 jconfig.apply_overrides(jcfg, {override: True}))
+    ported = HIPIEModel(cfg.model).eval()
+    ported.load_state_dict(model.state_dict(), strict=True)
+    pred = HIPIEPredictor(cfg, ported, tok, bucket=BUCKET, device="cpu")
+    spec, has_thing = _spec(pred, "detection", test_categories=CATS)
+    jspec, _ = _spec(pred, "detection", test_categories=CATS, prompts=jprompts)
+    img = image(7)                  # the fixture's detection image
+    jres, _ = JPredictor(jcfg, params, tok, bucket=BUCKET)._run(jspec, img, "detection", has_thing)
+    tres, _ = pred._run(spec, img, "detection", has_thing)
+    _, _, ref, _ = both[5]["detection"]
+    assert not np.allclose(tres.scores.numpy(), ref.scores.numpy()), "the option changed nothing"
+    _close(tres.scores, jres.scores, 1e-4, "scores")
+    np.testing.assert_array_equal(tres.classes.numpy(), np.asarray(jres.classes), "classes")
+    _close(tres.boxes, jres.boxes, 1e-4, "boxes")
+    _close(tres.mask_logits, jres.mask_logits, 1e-3, "mask_logits", of_scale=True)
+    _close(tres.sem_seg, jres.sem_seg, 1e-4, "sem_seg")
+    for name in ("panoptic", "segment_valid", "segment_classes", "segment_isthing"):
+        np.testing.assert_array_equal(getattr(tres, name).numpy(), np.asarray(getattr(jres, name)),
+                                      err_msg=name)
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (50, 80), (1200, 900), (37, 23)])

@@ -141,16 +141,17 @@ def _fill(path: str, shape, r: np.random.RandomState) -> np.ndarray:
     return n(0.02)
 
 
-def jax_train_state(arrays, seed: int = 0):
+def jax_train_state(arrays, seed: int = 0, **overrides):
     """(JAX model, params, cfg): the parameter tree ``create_train_state``
     builds (its shapes by jax.eval_shape, which traces it without running the
-    init), filled from a numpy seed by ``_fill``."""
+    init), filled from a numpy seed by ``_fill``; ``overrides`` go on top of
+    the training config."""
     import jax
 
     from hipie_tpu.models.hipie import HIPIEModel as JModel
     from hipie_tpu.train.step import create_train_state
 
-    jcfg = train_config(jconfig)
+    jcfg = train_config(jconfig, **overrides)
     model = JModel(jcfg.model)
     shapes = jax.eval_shape(
         lambda: create_train_state(model, jcfg, jax.random.PRNGKey(seed),
@@ -171,3 +172,90 @@ def port_model_from_jax(params, cfg=None):
     model = HIPIEModel(cfg.model, train=True)
     load_from_jax(model, to_numpy_tree(params["params"]), cfg)
     return model.train(), cfg
+
+
+def loss_records(arrays, key_seed: int = 1, **overrides):
+    """(JAX record, port record) of one training loss and its gradient from the
+    same parameters and batch, at the training config with ``overrides``.
+
+    The JAX ``loss_fn`` runs under jax.value_and_grad, the port's under
+    autograd. Both draw from the same JAX key (the port through ``JaxKeys``);
+    the mask losses' uncertainty-picked point coordinates are recorded from the
+    JAX run and replayed, and JAX's ``bilinear_sample_fastgrad`` (bf16 image
+    gradient) is swapped for its f32 twin. Each record holds "total", "grads"
+    (reference names; the port's ``p.grad``, None where none flowed), "terms"
+    (each weighted loss dict), "assign" (every matcher assignment) and, for the
+    port, "labels" (optimizer groups) and "replayed"."""
+    import jax
+
+    import hipie_tpu.losses.criterion as jcrit
+    import hipie_tpu.ops.bilinear as jbil
+    import hipie_tpu.train.step as jstep
+    import hipie_torch.losses.criterion as tcrit
+    import hipie_torch.train.step as tstep
+    from hipie_torch.train.optimizer import freeze_
+    from hipie_torch.utils.export import export_hipie_checkpoint, export_lang_layers
+
+    jmodel, params, jcfg = jax_train_state(arrays, **overrides)
+    rec = {"coords": [], "terms": [], "assign": []}
+    saved = (jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict,
+             jbil.bilinear_sample_fastgrad)
+    cb = lambda name: (lambda x: rec[name].append(jax.tree_util.tree_map(np.asarray, x)))
+
+    def coords(*a, **k):
+        c = saved[0](*a, **k)
+        jax.debug.callback(cb("coords"), c, ordered=True)
+        return c
+
+    def gather(t, assign):
+        jax.debug.callback(cb("assign"), assign, ordered=True)
+        return saved[1](t, assign)
+
+    def weights(losses, cfg):
+        jax.debug.callback(cb("terms"), losses, ordered=True)
+        return saved[2](losses, cfg)
+
+    jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict = (
+        coords, gather, weights)
+    jbil.bilinear_sample_fastgrad = jbil.bilinear_sample
+    try:
+        key = jax.random.PRNGKey(key_seed)
+        args = (params, jax_batch(arrays), key)
+        # XLA's cheaper CPU pipeline halves the compile, the bulk of the time
+        (total, _), grads = jax.jit(jax.value_and_grad(
+            jstep.make_loss_fn(jmodel, jcfg), has_aux=True)).lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0,
+                              "xla_llvm_disable_expensive_passes": True})(*args)
+        jax.effects_barrier()
+    finally:
+        (jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict,
+         jbil.bilinear_sample_fastgrad) = saved
+    cfg = train_config(**overrides)
+    grads_np = to_numpy_tree(grads)["params"]
+    want = {"total": float(total), **rec,
+            "grads": {**export_hipie_checkpoint(grads_np, cfg), **export_lang_layers(grads_np, cfg)}}
+
+    model, cfg = port_model_from_jax(params, cfg)
+    labels = freeze_(model)
+    got = {"coords": [], "terms": [], "assign": []}
+    replay = list(want["coords"])
+    tsaved = (tcrit.uncertain_point_coords, tcrit.gather_targets, tstep.apply_weight_dict)
+
+    def tgather(t, assign):
+        got["assign"].append(assign.numpy().copy())
+        return tsaved[1](t, assign)
+
+    def tweights(losses, c):
+        got["terms"].append({k: float(v.detach()) for k, v in losses.items()})
+        return tsaved[2](losses, c)
+
+    tcrit.uncertain_point_coords = lambda *a, **k: torch.from_numpy(np.array(replay.pop(0)))
+    tcrit.gather_targets, tstep.apply_weight_dict = tgather, tweights
+    try:
+        total, _ = tstep.make_loss_fn(model, cfg)(torch_batch(arrays), JaxKeys(key))
+        total.backward()
+    finally:
+        tcrit.uncertain_point_coords, tcrit.gather_targets, tstep.apply_weight_dict = tsaved
+    got.update(total=float(total.detach()), replayed=len(want["coords"]) - len(replay),
+               grads={n: p.grad for n, p in model.named_parameters()}, labels=labels)
+    return want, got

@@ -22,87 +22,14 @@ an absolute limit of 1e-5 of the largest instead.
 
 import numpy as np
 import pytest
-import jax
-import torch
 
-from test_torch_train_common import (JaxKeys, batch_arrays, jax_batch, jax_train_state,
-                                     port_model_from_jax, to_numpy_tree, torch_batch,
-                                     train_config)
+from test_torch_train_common import batch_arrays, loss_records
 
 
 @pytest.fixture(scope="module")
 def runs():
     """(JAX record, port record) of one loss and gradient from the same state."""
-    import hipie_tpu.losses.criterion as jcrit
-    import hipie_tpu.ops.bilinear as jbil
-    import hipie_tpu.train.step as jstep
-    import hipie_torch.losses.criterion as tcrit
-    import hipie_torch.train.step as tstep
-    from hipie_torch.train.optimizer import freeze_
-    from hipie_torch.utils.export import export_hipie_checkpoint
-
-    arrays = batch_arrays()
-    jmodel, params, jcfg = jax_train_state(arrays)
-    rec = {"coords": [], "terms": [], "assign": []}
-    saved = (jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict,
-             jbil.bilinear_sample_fastgrad)
-    cb = lambda name: (lambda x: rec[name].append(jax.tree_util.tree_map(np.asarray, x)))
-
-    def coords(*a, **k):
-        c = saved[0](*a, **k)
-        jax.debug.callback(cb("coords"), c, ordered=True)
-        return c
-
-    def gather(t, assign):
-        jax.debug.callback(cb("assign"), assign, ordered=True)
-        return saved[1](t, assign)
-
-    def weights(losses, cfg):
-        jax.debug.callback(cb("terms"), losses, ordered=True)
-        return saved[2](losses, cfg)
-
-    jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict = (
-        coords, gather, weights)
-    jbil.bilinear_sample_fastgrad = jbil.bilinear_sample
-    try:
-        key = jax.random.PRNGKey(1)
-        args = (params, jax_batch(arrays), key)
-        # XLA's cheaper CPU pipeline halves the compile, the bulk of this file's time
-        (total, _), grads = jax.jit(jax.value_and_grad(
-            jstep.make_loss_fn(jmodel, jcfg), has_aux=True)).lower(*args).compile(
-            compiler_options={"xla_backend_optimization_level": 0,
-                              "xla_llvm_disable_expensive_passes": True})(*args)
-        jax.effects_barrier()
-    finally:
-        (jcrit.uncertain_point_coords, jcrit.gather_targets, jstep.apply_weight_dict,
-         jbil.bilinear_sample_fastgrad) = saved
-    want = {"total": float(total), "grads": export_hipie_checkpoint(
-        to_numpy_tree(grads)["params"], train_config()), **rec}
-
-    model, cfg = port_model_from_jax(params)
-    labels = freeze_(model)
-    got = {"coords": [], "terms": [], "assign": []}
-    replay = list(want["coords"])
-    tsaved = (tcrit.uncertain_point_coords, tcrit.gather_targets, tstep.apply_weight_dict)
-
-    def tgather(t, assign):
-        got["assign"].append(assign.numpy().copy())
-        return tsaved[1](t, assign)
-
-    def tweights(losses, c):
-        got["terms"].append({k: float(v.detach()) for k, v in losses.items()})
-        return tsaved[2](losses, c)
-
-    tcrit.uncertain_point_coords = lambda *a, **k: torch.from_numpy(replay.pop(0))
-    tcrit.gather_targets, tstep.apply_weight_dict = tgather, tweights
-    try:
-        total, _ = tstep.make_loss_fn(model, cfg)(torch_batch(arrays), JaxKeys(key))
-        total.backward()
-    finally:
-        tcrit.uncertain_point_coords, tcrit.gather_targets, tstep.apply_weight_dict = tsaved
-    got.update(total=float(total.detach()), replayed=len(want["coords"]) - len(replay),
-               grads={n: p.grad for n, p in model.named_parameters()}, labels=labels)
-    return want, got
+    return loss_records(batch_arrays())
 
 
 def test_assignments_are_identical(runs):
