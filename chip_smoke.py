@@ -127,10 +127,35 @@ prints no result line):
     step, the decoder at Q = 200 + 32 + 10 + 900; ms per step, peak memory
     and each named range's device ms by CUDA events (crit_bg_lang among
     them).
-Every shape at which phases 5 and 8 launched K-A, every shape at which phases
-5 to 12 launched K-B, every shape at which phases 7 to 9 and 12 launched K-D,
-and every shape at which phase 8 launched K-E must be one that phase 3
-checked.
+13. parallel: the data-parallel step (hipie_torch/parallel/) on the one card.
+    (a) phase_parallel_vith: vit_huge_coco_panoptic() at full width and depth,
+    2 steps on phase 8's batches from one CPU snapshot of the state and one
+    seed, three times through the plain step and once under NCCL at world size
+    1 (init_distributed in this process): at the first step the NCCL run's
+    largest loss-term and gradient differences from the first plain run
+    within twice the other plain runs' (the step adds with atomics, so it is
+    not bitwise repeatable; the second step's reported), K-A 48, K-E 24, K-B 33 and K-D 21 a step exactly; ms per
+    step, the "allreduce" range's device ms, collectives a step, peak memory.
+    (b) phase_parallel_pair: r50_coco_panoptic() at full width as two gloo
+    ranks on cuda:0 (NCCL refuses two ranks on one device), each with one
+    image of phase 7's batch of 2 (GT counts differ, the second image all
+    stuff): (i) one f32 step (TF32 off) against the one-process batch-2 step
+    from the same weights and keys, the one-process run's point picks and
+    matches replayed (loss terms within PAR_TERM_RTOL; the gradients' median
+    within PAR_GRAD_MEDIAN_RTOL and each within PAR_GRAD_RTOL; the ranks' own
+    matching, a second one-process run and one from weights nudged by one ulp
+    reported beside);
+    (ii) 2 bf16 steps through the Trainer, the ranks bit-identical after each,
+    K-B and K-D 21 a step a rank; (iii) evaluate_detection_dataset sharded
+    over phase 9's fixture val split with phase 9's checkpoint, every metric
+    equal to phase 9's eval_net numbers, and with a predictor that answers
+    from the ground truth, imperfectly (GtPredictor: every metric strictly
+    between 0 and 100, where phase 9's few steps score 0), every metric equal
+    to one process's. Each process's peak memory.
+Every shape at which phases 5, 8 and 13 launched K-A, every shape at which
+phases 5 to 13 launched K-B, every shape at which phases 7 to 9, 12 and 13
+launched K-D, and every shape at which phases 8 and 13 launched K-E must be
+one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -140,6 +165,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -187,6 +213,8 @@ N_STUFF = 53
 BG_LANG_SLOTS = 32
 BG_LANG_DEC_Q = N_STUFF + 10 + 900
 TRAIN_BG_LANG_DEC_Q = 200 + BG_LANG_SLOTS + 10 + 900
+# The parallel phase's R50 steps: the training shapes in f32 (13b's
+# one-process step), and at one image a rank ("rank_*", bf16 and f32).
 # The pipeline phase (configs/smoke_tiny_coco.yaml: R50, batch 2 of 256x256
 # LSJ crops): levels at strides 8 to 64, encoder Q = S = 1360, the decoder's
 # and MaskDINO's queries as in the training step above.
@@ -216,6 +244,13 @@ MSDA_CASES = (
     ("pipe_encoder", PIPE_LEVELS, TRAIN_B, PIPE_S, torch.bfloat16, "uniform"),
     ("pipe_decoder", PIPE_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
     ("pipe_maskdino", PIPE_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S, torch.float32, "uniform"),
+    ("train_decoder_f32", VITH_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.float32, "uniform"),
+    ("train_maskdino_f32", VITH_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.float32, "uniform"),
+    ("rank_decoder", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("rank_maskdino", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("rank_decoder_f32", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.float32, "uniform"),
+    ("rank_maskdino_f32", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.float32, "uniform"),
 )
 # K-D's cases: every shape the training phase launches it at (bf16), each also
 # in f32, and the encoder with local locations; main() fails if the training
@@ -234,6 +269,12 @@ MSDA_BWD_CASES = (
     ("pipe_encoder", PIPE_LEVELS, TRAIN_B, PIPE_S, torch.bfloat16, "uniform"),
     ("pipe_decoder", PIPE_LEVELS, TRAIN_B, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
     ("pipe_maskdino", PIPE_LEVELS[::-1], TRAIN_B, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("rank_encoder", VITH_LEVELS, 1, VITH_S, torch.bfloat16, "uniform"),
+    ("rank_decoder", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.bfloat16, "uniform"),
+    ("rank_maskdino", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.bfloat16, "uniform"),
+    ("rank_encoder_f32", VITH_LEVELS, 1, VITH_S, torch.float32, "uniform"),
+    ("rank_decoder_f32", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.float32, "uniform"),
+    ("rank_maskdino_f32", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.float32, "uniform"),
 )
 # K-A's cases (name, BH, Kh, Kw, hd), bf16: a ViT-H request (one image: BH =
 # 16, N = 4096, hd 80) and the ViT-H training step (batch 2: BH = 32), each
@@ -1650,7 +1691,7 @@ def time_mapper(cfg, datasets, crops=(PIPE_SIZE, 1024)) -> dict:
     return out
 
 
-def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
+def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE, root: str = ""):
     """Dataset to PQ through the port's entry points: the fixture from
     hipie_torch.tools.make_tiny_coco (6 train and 4 val PNG images of ``size``,
     the refcoco splits) in a temporary directory; train_net.main on
@@ -1661,7 +1702,9 @@ def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
     AdamW state bit-equal to the saved ones at step PIPE_STEPS, then
     PIPE_MORE_STEPS more steps (no more saves: the phase writes the step's
     checkpoint and model_best); eval_net.main on coco_panoptic_val with the
-    checkpoint. Returns K-B's and K-D's launches and shapes over the phase."""
+    checkpoint. The fixture and the run go under ``root`` (kept; default a
+    temporary directory, removed). Returns K-B's and K-D's launches and shapes
+    over the phase."""
     import hipie_torch.data.datasets as datasets
     import hipie_torch.models.msda_module as msda_module
     import hipie_torch.ops.ms_deform_attn as msda_ops
@@ -1670,7 +1713,8 @@ def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
     from hipie_torch.tools import eval_net, make_tiny_coco, train_net
 
     config = config or str(Path(__file__).resolve().parent / SMOKE_CONFIG)
-    root = tempfile.mkdtemp(prefix="hipie_pipeline_")
+    keep = bool(root)
+    root = root or tempfile.mkdtemp(prefix="hipie_pipeline_")
     data, run = os.path.join(root, "data"), os.path.join(root, "run")
     kb_shapes, kd_shapes, saves = [], [], []
     save = trainer_module.save_checkpoint
@@ -1746,7 +1790,8 @@ def phase_pipeline(dev, card, config: str = "", opts=(), size: int = PIPE_SIZE):
             os.environ.pop("HIPIE_DATASETS", None)
         else:
             os.environ["HIPIE_DATASETS"] = old_root
-        shutil.rmtree(root, ignore_errors=True)
+        if not keep:
+            shutil.rmtree(root, ignore_errors=True)
 
     steps = [h for h in history if h is not None]
     tasks = Counter(h["task"] for h in steps)
@@ -2174,6 +2219,633 @@ def phase_branches(dev, card, img: int = IMG, slots: int = TRAIN_N):
     return kb_shapes + train_kb, train_kd, records
 
 
+PAR_STEPS = 2
+# 13a: the plain step three times (its run-to-run spread), then under NCCL
+PAR_VITH_RUNS = ("plain", "plain_again", "plain_third", "nccl")
+# 13b (i): one f32 step of 2 ranks x 1 image against one process with both, on
+# the same weights, keys, point picks and matches: each loss term's mean over
+# the ranks within PAR_TERM_RTOL of one process's (relative), the reduced
+# gradients' median relative norm error within PAR_GRAD_MEDIAN_RTOL and each
+# one's within PAR_GRAD_RTOL. A batch of one and of two round apart in the
+# last bits, and the step amplifies round-off where it is not smooth:
+# bilinear sampling's location derivative jumps at every pixel edge, so a
+# sample near one takes either cell's derivative (the MSDA sampling offsets,
+# and what feeds the reference points, take the largest errors). A wrong
+# normaliser or reduction moves every gradient. A gradient under 1e-5 of the
+# largest carries round-off alone (a bias before a normalisation) and is
+# measured against the largest instead.
+PAR_TERM_RTOL = 1e-4
+PAR_GRAD_MEDIAN_RTOL = 1e-4
+PAR_GRAD_RTOL = 1e-2
+
+
+def _cpu_snapshot(model) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+
+
+def _restart(state, cfg, snapshot):
+    """``state`` back at ``snapshot``'s weights with a fresh optimizer, step 0."""
+    from hipie_torch.train.optimizer import GroupedAdamW
+
+    state.model.load_state_dict(snapshot)
+    state.model.zero_grad(set_to_none=True)
+    state.optimizer = GroupedAdamW(cfg.solver, state.model)
+    state.step = 0
+    return state
+
+
+def layer_major_rank_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a matcher's output over (layers x the global batch),
+    layer-major, at one image a rank."""
+    from hipie_torch.parallel.mesh import data_rank, data_size
+
+    return x.reshape((-1, data_size()) + x.shape[1:])[:, data_rank()]
+
+
+@contextlib.contextmanager
+def recording_step(state, picks=None, matches=None, ref_grads=None):
+    """Within the block each training step's weighted loss dicts (floats) go
+    to ``rec["terms"]``, the gradients the optimizer gets (on the device) to
+    ``rec["grads"]`` (with ``ref_grads``, a list a step, only each gradient's
+    relative error against them, to ``rec["grad_errs"]``) and every assignment
+    the criterion's losses gather by to ``rec["assign"]`` (on the host). The
+    mask losses' point picks go to ``rec["picks"]`` and the matchers' outputs
+    (simOTA, the auction, the encoder's Hungarian match) to ``rec["matches"]``,
+    or, with ``picks`` and ``matches`` (a one-process run's, one image a rank),
+    are replayed: each rank's rows of them. Both choose among near-ties (the
+    most uncertain points by a top-k, the auction's bids) of values that a
+    batch of one and of two round differently; the real pick still runs, so
+    that the keys advance as recorded."""
+    import hipie_torch.losses.criterion as criterion
+    import hipie_torch.train.step as step_module
+    from hipie_torch.parallel.mesh import shard_rows
+
+    rec = {"terms": [], "grads": [], "grad_errs": [], "assign": [], "picks": [],
+           "matches": []}
+    named = [(n, p) for n, p in state.model.named_parameters() if p.requires_grad]
+    patched = ("uncertain_point_coords", "simota_match", "auction_assignment",
+               "hungarian_vl_match", "gather_targets")
+    saved = {name: getattr(criterion, name) for name in patched}
+    saved_weights, saved_step = step_module.apply_weight_dict, state.optimizer.step
+    picks = None if picks is None else list(picks)
+    matches = None if matches is None else list(matches)
+
+    def weights(losses, lc):
+        rec["terms"].append({k: float(v) for k, v in losses.items()})
+        return saved_weights(losses, lc)
+
+    def gather(t, assign):
+        rec["assign"].append(assign.detach().cpu())
+        return saved["gather_targets"](t, assign)
+
+    def pick(*a, **k):
+        got = saved["uncertain_point_coords"](*a, **k)
+        if picks is None:
+            rec["picks"].append(got.cpu())
+            return got
+        return shard_rows(picks.pop(0).to(got.device))
+
+    def matcher(name):
+        def match(*a, **k):
+            if matches is not None:
+                return layer_major_rank_rows(matches.pop(0)).to(a[0].device)
+            got = saved[name](*a, **k)
+            rec["matches"].append(got.cpu())
+            return got
+        return match
+
+    def optimizer_step():
+        grads = {n: p.grad for n, p in named}
+        if ref_grads is None:
+            rec["grads"].append({n: None if g is None else g.detach().clone()
+                                 for n, g in grads.items()})
+        else:
+            rec["grad_errs"].append(grad_rel_errors(grads, ref_grads[len(rec["grad_errs"])]))
+        return saved_step()
+
+    step_module.apply_weight_dict, state.optimizer.step = weights, optimizer_step
+    criterion.gather_targets, criterion.uncertain_point_coords = gather, pick
+    for name in patched[1:4]:
+        setattr(criterion, name, matcher(name))
+    try:
+        yield rec
+    finally:
+        step_module.apply_weight_dict = saved_weights
+        for name, fn in saved.items():
+            setattr(criterion, name, fn)
+        del state.optimizer.step
+
+
+def grad_rel_errors(got: dict, want: dict) -> dict:
+    """Each gradient's relative norm error against ``want``'s (on the device);
+    a tensor under 1e-5 of the largest reference norm relative to the largest."""
+    largest = max(float(w.float().norm()) for w in want.values() if w is not None)
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        if (g is None) != (w is None):
+            raise AssertionError(f"parallel: {name} has a gradient on one side only")
+        if w is None:
+            continue
+        w = w.to(g.device).float()
+        norm = float(w.norm())
+        out[name] = float((g.float() - w).norm()) / (norm if norm >= 1e-5 * largest else largest)
+    return out
+
+
+def term_rel_errors(got: list, want: list) -> dict:
+    """Each loss term's relative error, over a step's weighted dicts."""
+    out = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        if set(g) != set(w):
+            raise AssertionError(f"parallel: loss dict {i} has terms {sorted(set(g) ^ set(w))} "
+                                 f"on one side only")
+        out.update({f"{i}.{k}": abs(g[k] - w[k]) / max(abs(w[k]), 1e-6) for k in w
+                    if k.startswith("loss")})
+    return out
+
+
+def phase_parallel_vith(dev, card):
+    """13a: vit_huge_coco_panoptic() at full width and depth, bf16, PAR_STEPS
+    steps on phase 8's batches through the data-parallel step under NCCL at
+    world size 1, against the plain step from the same state and keys, run
+    three times (the step is not bitwise repeatable: K-D's and grid_sample's
+    backward add with atomics). The distributed step's largest loss-term and
+    gradient differences from the first plain run must stay within twice the
+    largest of the other two plain runs' at the first step (the second's are
+    reported); each kernel's launches a step exact."""
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    import hipie_torch.ops.vit_attention as vit_ops
+    import hipie_torch.train.step as step_module
+    from hipie_torch import kernels
+    from hipie_torch.parallel import mesh
+    from hipie_torch.presets import vit_huge_coco_panoptic
+    from hipie_torch.train.profile import _PhaseTimer
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.train.synthetic import train_batches
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    cfg = dataclasses.replace(vit_huge_coco_panoptic(),
+                              output_dir=tempfile.mkdtemp(prefix="hipie_par_"))
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, seed=SEED, device=dev)
+    snapshot = _cpu_snapshot(state.model)
+    want = train_launches(cfg, state.model)
+    batches = train_batches(cfg, PAR_STEPS, SEED, img=IMG, slots=TRAIN_N, batch=TRAIN_B)
+    log(f"[parallel] 13a: ViT-H training state built and copied to the host in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ref, errs, out = None, {}, {}
+    ka_shapes, kb_shapes, kd_shapes, ke_shapes = [], [], [], []
+    for run in PAR_VITH_RUNS:
+        if run == "nccl":
+            mesh.init_distributed("nccl", mesh.local_url(), rank=0, world_size=1)
+        try:
+            _restart(state, cfg, snapshot)
+            step = make_train_step(cfg, state, device=dev)
+            keys = GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED))
+            timer = _PhaseTimer() if run == "nccl" else None
+            scope_fn = step_module.scope
+            torch.cuda.reset_peak_memory_stats()
+            # the first run's gradients, held for the comparison, are not the step's
+            held = 0 if ref is None else sum(g.numel() * g.element_size() for step_grads in
+                                             ref["grads"] for g in step_grads.values()
+                                             if g is not None)
+            per_step = []
+            with recording_step(state, ref_grads=ref and ref["grads"]) as rec, \
+                    timing_vit_kernel(ka_shapes), \
+                    timing_calls(msda_module, "ms_deform_attn",
+                                 lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)),
+                                 timed=False), \
+                    timing_calls(msda_ops, "ms_deform_attn_backward",
+                                 lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False), \
+                    timing_calls(vit_ops, "vit_attention_backward",
+                                 lambda *a: ke_shapes.append(vit_shape(a[0], a[3], a[4])),
+                                 timed=False):
+                if timer is not None:
+                    step_module.scope = timer
+                try:
+                    for batch in batches:
+                        kernels.reset_launch_counts()
+                        mesh.COLLECTIVES.clear()
+                        t = time.perf_counter()
+                        step(state, batch, keys)
+                        torch.cuda.synchronize()
+                        per_step.append({"ms": 1e3 * (time.perf_counter() - t),
+                                         "launches": dict(kernels.LAUNCHES),
+                                         "collectives": sum(mesh.COLLECTIVES.values()),
+                                         "ranges": timer.take() if timer else {}})
+                finally:
+                    step_module.scope = scope_fn
+        finally:
+            mesh.shutdown_distributed()
+        peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 30
+        for i, s in enumerate(per_step):
+            if s["launches"] != want:
+                raise AssertionError(f"parallel 13a ({run}): step {i} launched {s['launches']}, "
+                                     f"expected {want}")
+        if ref is None:
+            ref = rec
+        else:
+            terms = [term_rel_errors(rec["terms"][2 * i:2 * i + 2], ref["terms"][2 * i:2 * i + 2])
+                     for i in range(PAR_STEPS)]
+            top = lambda d: [(k, float(f"{v:.3e}")) for k, v in
+                             sorted(d.items(), key=lambda kv: -kv[1])[:2]]
+            errs[run] = {"terms": [max(t.values()) for t in terms],
+                         "grads": [max(g.values()) for g in rec["grad_errs"]],
+                         "top_terms": [top(t) for t in terms],
+                         "top_grads": [top(g) for g in rec["grad_errs"]]}
+        out[run] = {"per_step": per_step, "peak_gib": peak}
+        log(f"[parallel] 13a {run}: ms per step {[round(s['ms'], 1) for s in per_step]}, "
+            f"collectives a step {[s['collectives'] for s in per_step]}, allreduce device ms "
+            f"{[round(s['ranges'].get('allreduce', 0.0), 3) for s in per_step]}, launches a step "
+            f"{per_step[-1]['launches']}, peak memory {peak:.2f} GiB"
+            + (" (with the run's first-step gradients kept)" if run == "plain" else "")
+            + (f"; largest relative difference from the first plain run, a step: loss terms "
+               f"{[f'{e:.3e}' for e in errs[run]['terms']]} (largest {errs[run]['top_terms']}), "
+               f"gradients {[f'{e:.3e}' for e in errs[run]['grads']]} (largest "
+               f"{errs[run]['top_grads']})" if run in errs else ""))
+    # held at the first step: from the second on, the runs start from states
+    # that the first step's atomics left apart, and discrete choices (the
+    # two-stage top-k, the matchers) flip between them
+    plain = [errs[r] for r in PAR_VITH_RUNS[1:-1]]
+    bound_terms = 2 * max(e["terms"][0] for e in plain)
+    bound_grads = 2 * max(e["grads"][0] for e in plain)
+    nccl_terms, nccl_grads = errs["nccl"]["terms"][0], errs["nccl"]["grads"][0]
+    if nccl_terms > bound_terms or nccl_grads > bound_grads:
+        raise AssertionError(f"parallel 13a: at the first step the NCCL run differs from the "
+                             f"first plain one by {nccl_terms} (loss terms) and {nccl_grads} "
+                             f"(gradients), over twice the other plain runs' own {plain}")
+    nccl = out["nccl"]["per_step"]
+    log(f"[parallel] 13a: ViT-H step under NCCL at world size 1 within twice the plain step's "
+        f"run-to-run difference at the first step (loss terms {nccl_terms:.3e} <= "
+        f"{bound_terms:.3e}, gradients {nccl_grads:.3e} <= {bound_grads:.3e}); ms per step "
+        f"{[round(s['ms'], 1) for s in nccl]}, allreduce {[round(s['ranges']['allreduce'], 3) for s in nccl]} "
+        f"device ms, {nccl[-1]['collectives']} collectives a step, peak "
+        f"{out['nccl']['peak_gib']:.2f} GiB; card {card}")
+    del state, snapshot, ref
+    torch.cuda.empty_cache()
+    return ({"errors": errs, "runs": out, "launches_per_step": want},
+            ka_shapes, kb_shapes, kd_shapes, ke_shapes)
+
+
+def pair_batches(cfg, n: int = PAR_STEPS):
+    """Phase 7's synthetic batches of 2 with the second image's GTs all stuff
+    in the first: the two images' GT counts differ and one holds no thing."""
+    from hipie_torch.train.synthetic import train_batches
+
+    batches = train_batches(cfg, n, SEED, img=IMG, slots=TRAIN_N, batch=TRAIN_B)
+    t = batches[0].targets
+    batches[0] = batches[0]._replace(targets=t._replace(
+        is_thing=torch.stack([t.is_thing[0], torch.zeros_like(t.is_thing[1])])))
+    counts = batches[0].targets.valid.sum(-1).tolist()
+    if counts[0] == counts[1] or not batches[0].targets.is_thing[0].any():
+        raise AssertionError(f"parallel 13b: the batch's GT counts {counts} must differ and "
+                             f"image 0 must hold things")
+    return batches
+
+
+def rank_batch(batch, rank: int):
+    from hipie_torch.losses.criterion import Targets
+    from hipie_torch.train.step import TrainBatch
+
+    take = lambda x: x[rank:rank + 1].contiguous()
+    return TrainBatch(*(take(x) for x in batch[:5]), Targets(*(take(x) for x in batch.targets)))
+
+
+class GtPredictor:
+    """A predictor that answers from each image's ground truth, imperfectly, so
+    that the sharded evaluation's metrics lie strictly between 0 and 100:
+    image k's instances are its GT segments shifted k + 1 pixels right at
+    seeded scores plus 3k spurious ones (the images' detection counts
+    differ), its panoptic map the GT's shifted alike, without its first
+    segment on odd k, its semantic map the GT's with a band relabelled.
+    Images are told apart by their bytes."""
+
+    def __init__(self, records):
+        self.digest = lambda img: hashlib.sha1(np.ascontiguousarray(img).tobytes()).hexdigest()
+        self.records = {self.digest(r["image"]): (k, r) for k, r in enumerate(records)}
+
+    def __call__(self, img, task="detection", test_categories=None, test_is_thing=None,
+                 score_thresh=0.0):
+        k, rec = self.records[self.digest(img)]
+        r = np.random.RandomState(k)
+        h, w = img.shape[:2]
+        shift = lambda m: np.roll(m, k + 1, axis=1)
+        masks = [shift(a["segmentation"] > 0) for a in rec["annotations"]]
+        classes = [a["category_id"] for a in rec["annotations"]]
+        for _ in range(3 * k):
+            m = np.zeros((h, w), bool)
+            y, x = r.randint(0, h - 16), r.randint(0, w - 16)
+            m[y:y + r.randint(4, 16), x:x + r.randint(4, 16)] = True
+            masks.append(m)
+            classes.append(classes[r.randint(len(classes))])
+        boxes = [[xs.min(), ys.min(), xs.max() + 1, ys.max() + 1]
+                 for ys, xs in (np.nonzero(m) for m in masks)]
+        pan, segs = shift(rec["pan_seg_gt"]), list(rec["pan_segments"])
+        if k % 2:
+            pan = np.where(pan == segs[0]["id"], 0, pan)
+            segs = segs[1:]
+        sem = np.where(rec["sem_seg_gt"] == 255, 0, rec["sem_seg_gt"])
+        sem[:, :8 * (k + 1)] = (sem[:, :8 * (k + 1)] + 1) % len(rec["class_names"])
+        return {"instances": {"boxes": np.array(boxes, np.float64), "masks": np.stack(masks),
+                              "scores": r.uniform(0.05, 1.0, len(masks)),
+                              "classes": np.array(classes)},
+                "panoptic_seg": (pan, segs), "sem_seg": sem}
+
+
+GT_EVAL_KEYS = ("bbox/AP", "segm/AP", "panoptic/PQ", "sem_seg/mIoU")
+
+
+def gt_eval(pipe_data: str) -> dict:
+    """evaluate_detection_dataset with GtPredictor over phase 9's fixture val
+    split (box and mask AP, PQ, mIoU); each rank predicts its share."""
+    import hipie_torch.data.datasets as datasets
+    from hipie_torch.evaluation.evaluator import evaluate_detection_dataset
+
+    old_root = os.environ.get("HIPIE_DATASETS")
+    os.environ["HIPIE_DATASETS"] = pipe_data
+    try:
+        datasets._register_builtin()
+        records = [datasets.materialize_record(r)
+                   for r in datasets.get_dataset("coco_panoptic_val")]
+    finally:
+        if old_root is None:
+            os.environ.pop("HIPIE_DATASETS", None)
+        else:
+            os.environ["HIPIE_DATASETS"] = old_root
+        datasets._register_builtin()
+    pred = GtPredictor(records)
+    out = evaluate_detection_dataset(pred, records, len(records[0]["class_names"]),
+                                     records[0]["class_is_thing"],
+                                     tasks=("bbox", "segm", "panoptic", "sem_seg"))
+    out.pop("sec_per_image")
+    out["detections"] = [len(pred(r["image"])["instances"]["scores"]) for r in records]
+    return out
+
+
+def _pair_rank(rank: int, work: str, pipe_config: str, pipe_ckpt: str, pipe_data: str):
+    """One of 13b's two gloo ranks on cuda:0; writes its record to ``work``."""
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    from hipie_torch import kernels
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.parallel import mesh
+    from hipie_torch.parallel.dryrun import state_digest, tensor_digest
+    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.train.trainer import Trainer
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.init_distributed("gloo", f"file://{work}/rendezvous", rank=rank, world_size=2,
+                                device=torch.device("cuda", 0))
+    out = {"rank": rank, "kb_shapes": [], "kd_shapes": []}
+    try:
+        with timing_calls(msda_module, "ms_deform_attn",
+                          lambda *a, **k: out["kb_shapes"].append(msda_shape(*a, **k)),
+                          timed=False), \
+                timing_calls(msda_ops, "ms_deform_attn_backward",
+                             lambda *a: out["kd_shapes"].append(msda_shape(*a[:4])), timed=False):
+            # (i) one f32 step against the one-process step: with the ranks'
+            # own matching, then with the one-process run's matches replayed
+            one = torch.load(os.path.join(work, "one.pt"), weights_only=False)
+            want = torch.load(os.path.join(work, "grads.pt"), weights_only=True)
+            weights = torch.load(os.path.join(work, "weights.pt"), weights_only=True)
+            cfg = apply_overrides(r50_coco_panoptic(), {"model.dtype": "float32"})
+            state = create_train_state(cfg, seed=SEED, device=dev)
+            batch = rank_batch(pair_batches(cfg)[0], rank)
+            step = make_train_step(cfg, state, device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            for run, matches in (("own", None), ("replayed", one["matches"])):
+                _restart(state, cfg, weights)
+                with recording_step(state, one["picks"], matches, ref_grads=[want]) as rec:
+                    step(state, batch, GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED)))
+                torch.cuda.synchronize()
+                out[run] = {"terms": rec["terms"], "grad_errs": rec["grad_errs"][0],
+                            "assign_mismatch": sum(int(not torch.equal(g, w[rank:rank + 1]))
+                                                   for g, w in zip(rec["assign"], one["assign"])),
+                            "n_assign": (len(rec["assign"]), len(one["assign"]))}
+            out["f32_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            out["grad_digest"] = tensor_digest(p.grad for p in state.optimizer.params
+                                               if p.grad is not None)
+            del state, step, rec, want, weights
+            torch.cuda.empty_cache()
+
+            # (ii) two bf16 steps through the Trainer: ranks bit-identical after each
+            cfg = dataclasses.replace(r50_coco_panoptic(), output_dir=os.path.join(
+                work, f"run{rank}"))
+            state = create_train_state(cfg, seed=SEED, device=dev)
+            inner = make_train_step(cfg, state, device=dev)
+            digests, per_step = [], []
+
+            def train_step(st, batch, keys):
+                kernels.reset_launch_counts()
+                mesh.COLLECTIVES.clear()
+                t = time.perf_counter()
+                st, metrics = inner(st, batch, keys)
+                torch.cuda.synchronize()
+                per_step.append({"ms": 1e3 * (time.perf_counter() - t),
+                                 "launches": dict(kernels.LAUNCHES),
+                                 "collectives": sum(mesh.COLLECTIVES.values())})
+                digests.append(state_digest(st))
+                return st, metrics
+
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(cfg, state, train_step,
+                              iter([rank_batch(b, rank) for b in pair_batches(cfg)]),
+                              log_period=1, device=dev, checkpoints=False)
+            trainer.train(max_iter=PAR_STEPS)
+            out.update(digests=digests, per_step=per_step,
+                       bf16_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       total_loss=[h["total_loss"] for h in trainer.history])
+            del state, inner, trainer
+            torch.cuda.empty_cache()
+
+            # (iii) sharded evaluation of phase 9's checkpoint on its fixture
+            from hipie_torch.tools import eval_net
+
+            os.environ["HIPIE_DATASETS"] = pipe_data
+            import hipie_torch.data.datasets as datasets
+
+            datasets._register_builtin()
+            with contextlib.redirect_stdout(sys.stderr):
+                out["eval"] = eval_net.evaluate(eval_net.parse_args([
+                    "--config-file", pipe_config, "--dataset", "coco_panoptic_val",
+                    "--weights", pipe_ckpt, "--device", "cuda:0"]), dev)
+            out["eval_gt"] = gt_eval(pipe_data)
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown_distributed()
+
+
+def phase_parallel_pair(dev, card, pipe_root: str, pipe_eval: dict):
+    """13b: r50_coco_panoptic() at full width on two gloo ranks on the one card
+    (NCCL refuses two ranks on one device), each with one image of phase 7's
+    batch of 2 (GT counts differ, one image all stuff): (i) one f32 step (TF32
+    off) against the one-process batch-2 step from the same weights and keys:
+    with the one-process run's point picks and matches replayed (they choose
+    among near-ties, which a batch of one and of two round apart), each loss
+    term's mean over the ranks within PAR_TERM_RTOL, the reduced gradients'
+    median relative error within PAR_GRAD_MEDIAN_RTOL and each's within
+    PAR_GRAD_RTOL; the ranks' own matching, a second one-process run and one
+    from weights nudged by one ulp (the step's own sensitivity: its discrete
+    choices flip) are reported beside it; (ii) two bf16 steps through the Trainer, ranks
+    bit-identical after each and K-B and K-D 21 a step a rank; (iii)
+    evaluate_detection_dataset sharded over phase 9's fixture val split with
+    phase 9's checkpoint, every metric equal to phase 9's eval_net numbers
+    (all 0 after its few steps), and with GtPredictor, every metric strictly
+    between 0 and 100 and equal to one process's.
+    Returns the record and K-B's and K-D's shapes."""
+    import torch.multiprocessing as mp
+
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    work = tempfile.mkdtemp(prefix="hipie_pair_")
+    kb_shapes, kd_shapes = [], []
+    try:
+        cfg = apply_overrides(r50_coco_panoptic(), {"model.dtype": "float32"})
+        state = create_train_state(cfg, seed=SEED, device=dev)
+        weights = _cpu_snapshot(state.model)
+        torch.save(weights, os.path.join(work, "weights.pt"))
+        batch = pair_batches(cfg)[0]
+        step = make_train_step(cfg, state, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with recording_step(state) as rec, \
+                timing_calls(msda_module, "ms_deform_attn",
+                             lambda *a, **k: kb_shapes.append(msda_shape(*a, **k)), timed=False), \
+                timing_calls(msda_ops, "ms_deform_attn_backward",
+                             lambda *a: kd_shapes.append(msda_shape(*a[:4])), timed=False):
+            step(state, batch, GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED)))
+        torch.cuda.synchronize()
+        one_ms, one_peak = 1e3 * (time.perf_counter() - t0), torch.cuda.max_memory_allocated()
+        # the one-process step again, from the same weights (then from the
+        # weights nudged by one ulp), keys, picks and matches
+        controls = {}
+        nudged = {k: torch.nextafter(v, torch.full_like(v, float("inf")))
+                  if v.is_floating_point() else v for k, v in weights.items()}
+        for name, start in (("one-process again", weights),
+                            ("one-process, weights nudged by one ulp", nudged)):
+            _restart(state, cfg, start)
+            with recording_step(state, rec["picks"], rec["matches"],
+                                ref_grads=rec["grads"]) as again:
+                step(state, batch, GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED)))
+            torch.cuda.synchronize()
+            controls[name] = (again["terms"], again["grad_errs"][0])
+        del nudged
+        torch.save({k: (None if v is None else v.cpu()) for k, v in rec["grads"][0].items()},
+                   os.path.join(work, "grads.pt"))
+        torch.save({k: rec[k] for k in ("picks", "matches", "assign")},
+                   os.path.join(work, "one.pt"))
+        one_terms = rec["terms"]
+        del state, step, rec, weights
+        torch.cuda.empty_cache()
+        one_gt_eval = gt_eval(os.path.join(pipe_root, "data"))
+        t0 = time.perf_counter()
+        mp.start_processes(_pair_rank, args=(work, str(Path(__file__).resolve().parent /
+                                                       SMOKE_CONFIG),
+                                             os.path.join(pipe_root, "run",
+                                                          f"model_{PIPE_STEPS:07d}.pth"),
+                                             os.path.join(pipe_root, "data")),
+                           nprocs=2, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def summary(terms, grads):
+        top = lambda d: [(k, float(f"{v:.3e}")) for k, v in
+                         sorted(d.items(), key=lambda kv: -kv[1])[:3]]
+        return {"term": max(terms.values()), "grad": max(grads.values()),
+                "grad_median": float(np.median(list(grads.values()))),
+                "grads_over_1e-4": sum(v > 1e-4 for v in grads.values()), "n_grads": len(grads),
+                "top_terms": top(terms), "top_grads": top(grads)}
+
+    runs = {name: summary(term_rel_errors(terms, one_terms), grads)
+            for name, (terms, grads) in controls.items()}
+    for run in ("own", "replayed"):
+        mean = [{k: float(np.mean([r[run]["terms"][i][k] for r in ranks]))
+                 for k in ranks[0][run]["terms"][i]} for i in range(len(one_terms))]
+        runs[f"2 ranks, {run} matches"] = {
+            **summary(term_rel_errors(mean, one_terms), ranks[0][run]["grad_errs"]),
+            "assignments differing": [r[run]["assign_mismatch"] for r in ranks],
+            "of": ranks[0][run]["n_assign"]}
+    for name, r in runs.items():
+        log(f"[parallel] 13b (i) {name}: largest relative error of a loss term {r['term']:.3e}, "
+            f"of a gradient {r['grad']:.3e} (median {r['grad_median']:.3e}, "
+            f"{r['grads_over_1e-4']} of {r['n_grads']} over 1e-4); largest {r['top_terms']} "
+            f"{r['top_grads']}"
+            + (f"; assignments differing from one process's {r['assignments differing']} of "
+               f"{r['of']}" if "of" in r else ""))
+    held = runs["2 ranks, replayed matches"]
+    log(f"[parallel] 13b (i): one f32 step (TF32 off), 2 gloo ranks x 1 image against one "
+        f"process x 2 ({one_ms:.1f} ms, peak {one_peak / 2 ** 30:.2f} GiB), point picks and "
+        f"matches replayed: loss terms {held['term']:.3e} (limit {PAR_TERM_RTOL:.0e}), "
+        f"gradients' median {held['grad_median']:.3e} (limit {PAR_GRAD_MEDIAN_RTOL:.0e}) and "
+        f"largest {held['grad']:.3e} (limit {PAR_GRAD_RTOL:.0e})")
+    if ranks[0]["grad_digest"] != ranks[1]["grad_digest"]:
+        raise AssertionError("parallel 13b (i): the ranks' reduced gradients differ")
+    if (held["term"] > PAR_TERM_RTOL or held["grad_median"] > PAR_GRAD_MEDIAN_RTOL
+            or held["grad"] > PAR_GRAD_RTOL or any(held["assignments differing"])):
+        raise AssertionError(f"parallel 13b (i): past the limits {PAR_TERM_RTOL}, "
+                             f"{PAR_GRAD_MEDIAN_RTOL} and {PAR_GRAD_RTOL}: {held}")
+    for i in range(PAR_STEPS):
+        if ranks[0]["digests"][i] != ranks[1]["digests"][i]:
+            raise AssertionError(f"parallel 13b (ii): the ranks' states differ after step {i}")
+    for r in ranks:
+        for i, s in enumerate(r["per_step"]):
+            got = {k: s["launches"][k] for k in ("ms_deform_attn", "ms_deform_attn_bwd")}
+            if got != {"ms_deform_attn": 21, "ms_deform_attn_bwd": 21}:
+                raise AssertionError(f"parallel 13b (ii): rank {r['rank']} step {i} launched "
+                                     f"{got}, expected 21 and 21")
+    log(f"[parallel] 13b (ii): 2 bf16 steps, ranks bit-identical after each; total loss (mean "
+        f"over the ranks) {[round(x, 4) for x in ranks[0]['total_loss']]}; ms per step "
+        f"{[[round(s['ms'], 1) for s in r['per_step']] for r in ranks]}; collectives a step "
+        f"{[s['collectives'] for s in ranks[0]['per_step']]} (gloo, tensors on the card); K-B "
+        f"and K-D a step a rank 21 and 21")
+    same = lambda a, b: a == b or (isinstance(a, float) and isinstance(b, float)
+                                   and np.isnan(a) and np.isnan(b))
+    diff = {(r["rank"], k): (r["eval"].get(k), v) for r in ranks for k, v in pipe_eval.items()
+            if k != "sec_per_image" and not same(r["eval"].get(k), v)}
+    if diff or any(set(r["eval"]) != set(pipe_eval) for r in ranks):
+        raise AssertionError(f"parallel 13b (iii): sharded metrics differ from phase 9's: {diff}")
+    log(f"[parallel] 13b (iii): sharded evaluate_detection_dataset over coco_panoptic_val "
+        f"({ranks[0]['eval']['images']} images, 2 ranks): every metric equal to phase 9's "
+        f"eval_net ({len(pipe_eval) - 1} keys)")
+    gt_diff = {(r["rank"], k): (r["eval_gt"].get(k), v) for r in ranks
+               for k, v in one_gt_eval.items() if not same(r["eval_gt"].get(k), v)}
+    if (gt_diff or any(set(r["eval_gt"]) != set(one_gt_eval) for r in ranks)
+            or not all(0 < one_gt_eval[k] < 100 for k in GT_EVAL_KEYS)
+            or len(set(one_gt_eval["detections"])) != len(one_gt_eval["detections"])):
+        raise AssertionError(f"parallel 13b (iii): with GtPredictor the sharded metrics "
+                             f"{gt_diff} differ from one process's {one_gt_eval}, or a metric "
+                             f"of {GT_EVAL_KEYS} is not strictly between 0 and 100, or two "
+                             f"images have as many detections")
+    log(f"[parallel] 13b (iii): with GtPredictor (detections an image "
+        f"{one_gt_eval['detections']}), sharded over 2 ranks: every metric equal to one "
+        f"process's ({len(one_gt_eval)} keys): "
+        f"{ {k: one_gt_eval[k] for k in GT_EVAL_KEYS} }")
+    log(f"[parallel] 13b: peak memory a process (GiB): one-process f32 step "
+        f"{one_peak / 2 ** 30:.2f}; ranks f32 {[round(r['f32_peak_gib'], 2) for r in ranks]}, "
+        f"bf16 {[round(r['bf16_peak_gib'], 2) for r in ranks]}; spawn to join "
+        f"{spawn_s:.1f} s; card {card}")
+    record = {"f32": runs,
+              "ms_per_step": [[s["ms"] for s in r["per_step"]] for r in ranks],
+              "peak_gib": [r["peak_gib"] for r in ranks], "one_ms": one_ms,
+              "per_step": ranks[0]["per_step"][-1]["launches"]}
+    return (record, kb_shapes + [s for r in ranks for s in r["kb_shapes"]],
+            kd_shapes + [s for r in ranks for s in r["kd_shapes"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2197,7 +2869,8 @@ def main() -> int:
     vit_train, vit_ka, vit_kb, vit_kd, vit_ke = phase_train(
         dev, card, cfg=vit_huge_coco_panoptic(), steps=VIT_TRAIN_STEPS)
     torch.cuda.empty_cache()
-    pipe, pipe_kb, pipe_kd = phase_pipeline(dev, card)
+    pipe_root = tempfile.mkdtemp(prefix="hipie_pipeline_")
+    pipe, pipe_kb, pipe_kd = phase_pipeline(dev, card, root=pipe_root)
     missing = [k for k, n in pipe["launches"].items() if n == 0]
     if missing:
         raise AssertionError(f"the pipeline phase never launched {missing}: {pipe['launches']}")
@@ -2207,6 +2880,12 @@ def main() -> int:
     bb_kb, backbones = phase_backbones(dev, card)
     torch.cuda.empty_cache()
     br_kb, br_kd, branches = phase_branches(dev, card)
+    torch.cuda.empty_cache()
+    par_vith, par_ka, par_kb, par_kd, par_ke = phase_parallel_vith(dev, card)
+    try:
+        par_pair, pair_kb, pair_kd = phase_parallel_pair(dev, card, pipe_root, pipe["eval"])
+    finally:
+        shutil.rmtree(pipe_root, ignore_errors=True)
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
     # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
     # must take K-A, again under vit_remat, and K-E for its gradient: counted
@@ -2217,11 +2896,12 @@ def main() -> int:
     if vit_got != vit_want:
         raise AssertionError(f"ViT-H train step launched {vit_got} of K-A and K-E, expected "
                              f"{vit_want}")
-    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka)
+    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka + par_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
-                                     + vit_kb + pipe_kb + ov_kb + bb_kb + br_kb if s])
-    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd)
-    check_coverage("K-E", vit_bwd_cases, vit_ke)
+                                     + vit_kb + pipe_kb + ov_kb + bb_kb + br_kb + par_kb
+                                     + pair_kb if s])
+    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd + par_kd + pair_kd)
+    check_coverage("K-E", vit_bwd_cases, vit_ke + par_ke)
     # every K-E launch of the ViT-H step on the wgmma design
     from hipie_torch.ops.vit_attention import vit_attention_bwd_design
 
@@ -2275,6 +2955,12 @@ def main() -> int:
     kd["branch_train_ms_per_step"] = branches["train"]["ms_per_step"]
     kd["branch_train_peak_gib"] = branches["train"]["peak_gib"]
     kd["branch_train_crit_bg_lang_ms"] = branches["train"]["crit_bg_lang_ms"]
+    for r in records:
+        if r["name"] in par_vith["launches_per_step"]:
+            r["launches_per_nccl_vit_huge_step"] = (
+                par_vith["runs"]["nccl"]["per_step"][-1]["launches"][r["name"]])
+        if r["name"] in par_pair["per_step"]:
+            r["launches_per_gloo_rank_step"] = par_pair["per_step"][r["name"]]
     kb["ms_per_request"] = msda_ms_per_request(msda_cases, kb_per_request)
     kb["ms_per_request_local"] = msda_ms_per_request(msda_cases, kb_per_request, local=True)
     log(f"[serve] K-B ms per ViT-H request from the shape times and the counted launches "

@@ -55,7 +55,14 @@ def rfs_repeat_factors(records: Sequence[Dict[str, Any]],
 
 class MultiDatasetSampler:
     """Infinite index stream: (dataset_idx, record_idx) with dataset ratios and
-    optional per-dataset repeat-factor upweighting."""
+    optional per-dataset repeat-factor upweighting.
+
+    One process (``num_shards`` 1) draws both from RandomState(seed), as JAX's
+    sampler does. Data-parallel shards draw the dataset, hence the batch's task
+    and size, from RandomState(seed), which every shard shares, and the
+    record from RandomState(seed + shard_rank), so that all ranks take one
+    task a step. (JAX's sampler seeds both from seed + shard_rank, so its
+    hosts would take different tasks at one step.)"""
 
     def __init__(self, sizes: Sequence[int], ratios: Sequence[float],
                  seed: int = 0, shard_rank: int = 0, num_shards: int = 1,
@@ -64,6 +71,7 @@ class MultiDatasetSampler:
         p = np.asarray(ratios, np.float64)
         self.p = p / p.sum()
         self.rng = np.random.RandomState(seed + shard_rank)
+        self.task_rng = self.rng if num_shards == 1 else np.random.RandomState(seed)
         self.shard_rank = shard_rank
         self.num_shards = num_shards
         self.within: List[Optional[np.ndarray]] = []
@@ -77,7 +85,7 @@ class MultiDatasetSampler:
 
     def __iter__(self) -> Iterator[Tuple[int, int]]:
         while True:
-            d = int(self.rng.choice(len(self.sizes), p=self.p))
+            d = int(self.task_rng.choice(len(self.sizes), p=self.p))
             w = self.within[d]
             if w is None:
                 i = int(self.rng.randint(self.sizes[d]))
@@ -111,7 +119,10 @@ class TrainLoader:
     """Ratio-sampled, dataset-homogeneous, bucket-padded infinite batches.
 
     Yields (task, TrainBatch) pairs; `task` is the emitting dataset's task
-    ("detection"/"grounding"/...), constant within a batch by construction."""
+    ("detection"/"grounding"/...), constant within a batch by construction.
+    Under data parallelism each rank's loader is shard ``shard_rank`` of
+    ``num_shards`` with its share of the batch: every rank yields the same
+    task at each step (``MultiDatasetSampler``)."""
 
     def __init__(self, cfg: DataConfig, mapper: HIPIEMapper,
                  batch_size: int, seed: int = 0,

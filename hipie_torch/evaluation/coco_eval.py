@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-from hipie_torch.evaluation.rle import box_iou_matrix, mask_iou_matrix
+from hipie_torch.evaluation.rle import box_iou_matrix, mask_iou_matrix, rle_decode, rle_encode
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -102,6 +102,25 @@ class COCOApEvaluator:
         for d in det_anns:
             self._dets[image_id][d["category_id"]].append(d)
             self._cats.add(d["category_id"])
+
+    def share(self) -> Dict[str, Any]:
+        """This evaluator's images as plain data, masks RLE-encoded: what a
+        data-parallel rank sends to the one that computes the metrics."""
+        enc = lambda a: ({**a, "mask": rle_encode(np.asarray(a["mask"], bool))}
+                         if "mask" in a else a)
+        plain = lambda store: {img: {cat: [enc(a) for a in anns] for cat, anns in by_cat.items()}
+                               for img, by_cat in store.items()}
+        return {"imgs": list(self._imgs), "gts": plain(self._gts), "dets": plain(self._dets)}
+
+    def merge(self, share: Dict[str, Any]) -> None:
+        """Add another rank's ``share`` (its image ids are not this one's)."""
+        dec = lambda a: {**a, "mask": rle_decode(a["mask"])} if "mask" in a else a
+        self._imgs.update(share["imgs"])
+        for key, store in (("gts", self._gts), ("dets", self._dets)):
+            for img, by_cat in share[key].items():
+                for cat, anns in by_cat.items():
+                    store[img][cat].extend(dec(a) for a in anns)
+                    self._cats.add(cat)
 
     def _ious(self, dets, gts):
         crowd = [g.get("iscrowd", 0) for g in gts]

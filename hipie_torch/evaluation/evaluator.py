@@ -8,14 +8,20 @@ Behavioral parity target: detectron2 inference_on_dataset
 train_net.py build_evaluator (:59-108): COCO box/segm AP, RefCOCO oIoU,
 panoptic PQ, semantic mIoU — selected per dataset.
 
-One process evaluates the whole dataset (the JAX package's multi-host merge
-waits for the port's multi-GPU work).
+Under data parallelism (hipie_torch/parallel/mesh.py) each rank predicts
+``records[rank::world]`` (of the first ``max_images``) and fills its own
+evaluators image by image, as one process does (detectron2's
+inference_on_dataset + comm.gather). Their shares then go to the main process
+(``gather_to_main``): the COCO evaluators' images (masks as RLE), the
+confusion counts, and the few numbers an image of PQ and RefCOCO, which it adds
+in record order, since their float sums depend on the order. It computes the
+metrics, the ones one process computes to the bit, and broadcasts them.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, Iterable, List, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -25,6 +31,21 @@ from hipie_torch.evaluation.seg_eval import (
     RefCOCOEvaluator,
     SemSegEvaluator,
 )
+from hipie_torch.parallel.mesh import data_rank, data_size
+from hipie_torch.parallel.multihost import (broadcast_from_main, gather_to_main,
+                                             is_main_process)
+
+
+def _shard(records: Iterable[Dict[str, Any]], max_images: Optional[int]):
+    """The first ``max_images`` records, and this rank's (index, record)
+    pairs among them: every data_size()-th, from its rank on."""
+    records = list(records)[:max_images] if max_images is not None else list(records)
+    return records, [(i, records[i]) for i in range(data_rank(), len(records), data_size())]
+
+
+def _in_record_order(parts: Iterable[List[Tuple[int, Any]]]) -> List[Any]:
+    """The entries of every rank's (index, entry) pairs, in record order."""
+    return [e for _, e in sorted((p for part in parts for p in part), key=lambda p: p[0])]
 
 
 def evaluate_detection_dataset(
@@ -49,11 +70,10 @@ def evaluate_detection_dataset(
     pan_eval = PanopticEvaluator(num_classes, is_thing) if "panoptic" in tasks else None
     sem_eval = SemSegEvaluator(num_classes) if "sem_seg" in tasks else None
 
-    n = 0
+    pan_stats: List[Tuple[int, Any]] = []
+    n_here = 0
     start = time.time()
-    for rec in records:
-        if max_images is not None and n >= max_images:
-            break
+    for i, rec in _shard(records, max_images)[1]:
         # panoptic records carry GT lazily (pan_seg_file + segments):
         # materialize decodes the png into instance annotations + pan/sem GT.
         if rec.get("pan_seg_file") or any(
@@ -70,17 +90,17 @@ def evaluate_detection_dataset(
                            score_thresh=score_thresh)
         inst = result["instances"]
         dets_box, dets_mask = [], []
-        for i in range(len(inst["scores"])):
-            x0, y0, x1, y1 = inst["boxes"][i]
-            d = {"category_id": int(inst["classes"][i]),
-                 "score": float(inst["scores"][i]),
+        for j in range(len(inst["scores"])):
+            x0, y0, x1, y1 = inst["boxes"][j]
+            d = {"category_id": int(inst["classes"][j]),
+                 "score": float(inst["scores"][j]),
                  "bbox": [float(x0), float(y0), float(x1), float(y1)],
                  "area": float(max(x1 - x0, 0) * max(y1 - y0, 0))}
             dets_box.append(d)
             if "segm" in evaluators:
                 dm = dict(d)
-                dm["mask"] = inst["masks"][i]
-                dm["area"] = float(inst["masks"][i].sum())
+                dm["mask"] = inst["masks"][j]
+                dm["area"] = float(inst["masks"][j].sum())
                 dets_mask.append(dm)
         gts_box, gts_mask = [], []
         for a in rec.get("annotations", []):
@@ -104,33 +124,44 @@ def evaluate_detection_dataset(
         if pan_eval is not None and "panoptic_seg" in result \
                 and "pan_seg_gt" in rec:
             pan, segs = result["panoptic_seg"]
-            pan_eval.add_image(pan, segs, rec["pan_seg_gt"], rec["pan_segments"])
+            pan_stats.append((i, pan_eval.image_stats(pan, segs, rec["pan_seg_gt"],
+                                                      rec["pan_segments"])))
         if sem_eval is not None and "sem_seg" in result and "sem_seg_gt" in rec:
             sem_eval.add_image(result["sem_seg"], rec["sem_seg_gt"])
-        n += 1
+        n_here += 1
+    elapsed = time.time() - start
 
-    out: Dict[str, float] = {}
-    for name, ev in evaluators.items():
-        for k, v in ev.evaluate().items():
-            out[f"{name}/{k}"] = v
-    if pan_eval is not None:
-        out.update({f"panoptic/{k}": v for k, v in pan_eval.evaluate().items()})
-    if sem_eval is not None:
-        out.update({f"sem_seg/{k}": v for k, v in sem_eval.evaluate().items()})
-    out["images"] = n
-    out["sec_per_image"] = (time.time() - start) / max(n, 1)
-    return out
+    main = is_main_process()
+    shares = gather_to_main((n_here, None if main else {k: ev.share() for k, ev in
+                                                         evaluators.items()},
+                             pan_stats, None if main else sem_eval))
+    out: Optional[Dict[str, float]] = None
+    if shares is not None:
+        for _, coco, _, sem in shares[1:]:
+            for name, ev in evaluators.items():
+                ev.merge(coco[name])
+            if sem_eval is not None:
+                sem_eval.merge(sem)
+        out = {}
+        for name, ev in evaluators.items():
+            for k, v in ev.evaluate().items():
+                out[f"{name}/{k}"] = v
+        if pan_eval is not None:
+            for stats in _in_record_order(s[2] for s in shares):
+                pan_eval.add_stats(stats)
+            out.update({f"panoptic/{k}": v for k, v in pan_eval.evaluate().items()})
+        if sem_eval is not None:
+            out.update({f"sem_seg/{k}": v for k, v in sem_eval.evaluate().items()})
+        out["images"] = sum(s[0] for s in shares)
+        out["sec_per_image"] = elapsed / max(n_here, 1)
+    return broadcast_from_main(out)
 
 
 def evaluate_refcoco_dataset(predictor, records, max_images=None):
     from hipie_torch.data.datasets import decode_segmentation, load_image
 
-    ev_mask = RefCOCOEvaluator()
-    ev_box = RefCOCOEvaluator()
-    n = 0
-    for rec in records:
-        if max_images is not None and n >= max_images:
-            break
+    stats: List[Tuple[int, Any]] = []
+    for i, rec in _shard(records, max_images)[1]:
         img = rec.get("image")
         if img is None:
             img = load_image(rec["file_name"])
@@ -141,20 +172,31 @@ def evaluate_refcoco_dataset(predictor, records, max_images=None):
         gt = rec["annotations"][0]
         gt_mask = (gt.get("segmentation") if gt.get("segmentation") is not None
                    else decode_segmentation(gt, h, w))
+        entry = None
         if len(inst["masks"]):
-            ev_mask.add_image(inst["masks"][0], gt_mask)
             pb = np.zeros((h, w), bool)
             x0, y0, x1, y1 = np.clip(inst["boxes"][0], 0, [w, h, w, h]).astype(int)
             pb[y0:y1, x0:x1] = True
             gb = np.zeros((h, w), bool)
             gx0, gy0, gx1, gy1 = np.clip(gt["bbox"], 0, [w, h, w, h]).astype(int)
             gb[gy0:gy1, gx0:gx1] = True
-            ev_box.add_image(pb, gb)
-        n += 1
-    out = {f"mask/{k}": v for k, v in ev_mask.evaluate().items()}
-    out.update({f"box/{k}": v for k, v in ev_box.evaluate().items()})
-    out["images"] = n
-    return out
+            entry = (RefCOCOEvaluator.image_stats(inst["masks"][0], gt_mask),
+                     RefCOCOEvaluator.image_stats(pb, gb))
+        stats.append((i, entry))
+    parts = gather_to_main(stats)
+    out = None
+    if parts is not None:
+        entries = _in_record_order(parts)
+        ev_mask = RefCOCOEvaluator()
+        ev_box = RefCOCOEvaluator()
+        for entry in entries:
+            if entry is not None:
+                ev_mask.add_stats(entry[0])
+                ev_box.add_stats(entry[1])
+        out = {f"mask/{k}": v for k, v in ev_mask.evaluate().items()}
+        out.update({f"box/{k}": v for k, v in ev_box.evaluate().items()})
+        out["images"] = len(entries)
+    return broadcast_from_main(out)
 
 
 def load_sem_seg_gt(path: str) -> np.ndarray:
@@ -180,20 +222,17 @@ def evaluate_semseg_dataset(predictor, records, metadata=None,
     # 0-based and use a sentinel ignore id outside the label range.
     shift_gt = ignore == 0
     eff_ignore = 10 ** 6 if shift_gt else ignore
+    records, mine = _shard(records, max_images)
     ev = None
-    n = 0
+    if records:
+        c = len(records[0]["class_names"])
+        if label_group:
+            ev = SemSegEvaluatorParts(c, label_group, metadata.get("n_merged", 58),
+                                      ignore_label=eff_ignore)
+        else:
+            ev = SemSegEvaluator(c, ignore_label=eff_ignore)
     start = time.time()
-    for rec in records:
-        if max_images is not None and n >= max_images:
-            break
-        if ev is None:
-            c = len(rec["class_names"])
-            if label_group:
-                ev = SemSegEvaluatorParts(c, label_group,
-                                          metadata.get("n_merged", 58),
-                                          ignore_label=eff_ignore)
-            else:
-                ev = SemSegEvaluator(c, ignore_label=eff_ignore)
+    for _, rec in mine:
         img = rec.get("image")
         if img is None:
             img = load_image(rec["file_name"])
@@ -207,11 +246,16 @@ def evaluate_semseg_dataset(predictor, records, metadata=None,
         if shift_gt:
             gt = np.where(gt == 0, np.int64(eff_ignore), gt - 1)
         ev.add_image(result["sem_seg"], gt)
-        n += 1
-    out = {f"sem_seg/{k}": v for k, v in (ev.evaluate() if ev else {}).items()}
-    out["images"] = n
-    out["sec_per_image"] = (time.time() - start) / max(n, 1)
-    return out
+    elapsed = time.time() - start
+    parts = gather_to_main((len(mine), None if is_main_process() else ev))
+    out = None
+    if parts is not None:
+        for _, other in parts[1:]:
+            ev.merge(other)
+        out = {f"sem_seg/{k}": v for k, v in (ev.evaluate() if ev else {}).items()}
+        out["images"] = sum(n for n, _ in parts)
+        out["sec_per_image"] = elapsed / max(len(mine), 1)
+    return broadcast_from_main(out)
 
 
 def instance_results_to_coco_json(predictions, records,

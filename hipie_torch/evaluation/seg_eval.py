@@ -37,6 +37,18 @@ class PanopticEvaluator:
     def add_image(self, pred_map: np.ndarray, pred_segments: List[dict],
                   gt_map: np.ndarray, gt_segments: List[dict]):
         """maps: (H, W) int32 segment ids (0 = void); segments: [{id, category_id}]."""
+        self.add_stats(self.image_stats(pred_map, pred_segments, gt_map, gt_segments))
+
+    def image_stats(self, pred_map: np.ndarray, pred_segments: List[dict],
+                    gt_map: np.ndarray, gt_segments: List[dict]
+                    ) -> Tuple[List[Tuple[int, float]], List[int], List[int]]:
+        """What one image adds: its matches as (category, IoU) in match order,
+        the categories of its unmatched GT segments (FN) and of its unmatched
+        predictions (FP). A few numbers an image, so that data-parallel ranks
+        can send them to one process, which adds them in record order."""
+        matches: List[Tuple[int, float]] = []
+        fns: List[int] = []
+        fps: List[int] = []
         pred_cat = {s["id"]: s["category_id"] for s in pred_segments}
         gt_cat = {s["id"]: s["category_id"] for s in gt_segments}
         # panopticapi crowd semantics: crowd GT segments never match and never
@@ -67,16 +79,14 @@ class PanopticEvaluator:
                      - inter.get((self.void, pi), 0))
             iou = c / max(union, 1)
             if iou > 0.5:
-                cat = gt_cat[gi]
-                self.tp[cat] += 1
-                self.iou[cat] += iou
+                matches.append((gt_cat[gi], iou))
                 matched_gt.add(gi)
                 matched_pred.add(pi)
         for gi, cat in gt_cat.items():
             if gi in gt_crowd:
                 continue
             if gi not in matched_gt and gt_area.get(gi, 0) > 0:
-                self.fn[cat] += 1
+                fns.append(cat)
         for pi, cat in pred_cat.items():
             if pi in matched_pred or pred_area.get(pi, 0) == 0:
                 continue
@@ -88,6 +98,18 @@ class PanopticEvaluator:
                                 and gt_cat.get(gi2) == cat)
             if void_overlap / max(pred_area[pi], 1) > 0.5:
                 continue
+            fps.append(cat)
+        return matches, fns, fps
+
+    def add_stats(self, stats) -> None:
+        """Add one image's ``image_stats``."""
+        matches, fns, fps = stats
+        for cat, iou in matches:
+            self.tp[cat] += 1
+            self.iou[cat] += iou
+        for cat in fns:
+            self.fn[cat] += 1
+        for cat in fps:
             self.fp[cat] += 1
 
     def evaluate(self) -> Dict[str, float]:
@@ -130,6 +152,10 @@ class SemSegEvaluator:
         g = gt[valid].astype(np.int64)
         idx = g * self.n + p
         self.conf += np.bincount(idx, minlength=self.n * self.n).reshape(self.n, self.n)
+
+    def merge(self, other: "SemSegEvaluator") -> None:
+        """Add another evaluator's counts (a data-parallel rank's images)."""
+        self.conf += other.conf
 
     def evaluate(self) -> Dict[str, float]:
         # exact detectron2 SemSegEvaluator semantics (reference
@@ -190,6 +216,10 @@ class SemSegEvaluatorParts(SemSegEvaluator):
         self.conf_reduced[:self.n_merged, :] += binc.reshape(
             self.n_merged, self.n_merged + 1)
 
+    def merge(self, other: "SemSegEvaluatorParts") -> None:
+        super().merge(other)
+        self.conf_reduced += other.conf_reduced
+
     def evaluate(self) -> Dict[str, float]:
         out = super().evaluate()
         conf = self.conf_reduced[:self.n_merged, :self.n_merged]
@@ -215,10 +245,18 @@ class RefCOCOEvaluator:
         self.miou_sum = 0.0
 
     def add_image(self, pred_mask: np.ndarray, gt_mask: np.ndarray):
+        self.add_stats(self.image_stats(pred_mask, gt_mask))
+
+    @staticmethod
+    def image_stats(pred_mask: np.ndarray, gt_mask: np.ndarray) -> Tuple[float, float]:
+        """One image's (intersection, union) in pixels: what add_image adds."""
         p = pred_mask.astype(bool)
         g = gt_mask.astype(bool)
-        inter = float(np.logical_and(p, g).sum())
-        union = float(np.logical_or(p, g).sum())
+        return float(np.logical_and(p, g).sum()), float(np.logical_or(p, g).sum())
+
+    def add_stats(self, stats: Tuple[float, float]) -> None:
+        """Add one image's ``image_stats``."""
+        inter, union = stats
         self.i_sum += inter
         self.u_sum += union
         iou = inter / max(union, 1e-9)

@@ -7,6 +7,13 @@ coco_forward): targets padded to N slots with validity masks, assignments as
 (B, Q) GT-index-or--1 tensors, and masks only for up to ``max_matched`` matched
 queries per image. Matching for all layers of a pass runs first, batched over
 (layers x images); the losses then run layer by layer. Every loss is f32.
+
+The normalisers (GT and matched counts, the things re-weighting's pair and
+thing counts) are the global batch's under data parallelism
+(``hipie_torch.parallel.mesh.global_count``: one all-reduce a pass, after its
+matching), in units of the global count over the group's size; a normaliser's
+floor of one count is ``count_unit()`` in those units. Without a process group
+they are this batch's counts and the floor is 1.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from hipie_torch.losses.point_features import point_sample, uncertain_point_coor
 from hipie_torch.models.mask_head import dynamic_mask_with_coords
 from hipie_torch.ops.box_ops import (box_cxcywh_to_xyxy, elementwise_box_iou,
                                      elementwise_generalized_box_iou)
+from hipie_torch.parallel.mesh import count_unit, data_size, global_count
 from hipie_torch.utils.rng import Keys
 
 
@@ -61,28 +69,40 @@ def loss_labels_vl(logits, assign, targets: Targets, text_mask, num_boxes,
     matched, _, pos_map, _, _ = gather_targets(targets, assign)
     tgt = (matched[..., None] & (pos_map > 0)).float()
     loss = _focal(logits.float(), tgt, alpha, gamma) * (text_mask[:, None, :] > 0)
-    return loss.sum() / num_boxes.clamp(min=1.0)
+    return loss.sum() / num_boxes.clamp(min=count_unit())
+
+
+def pair_counts(assign: torch.Tensor, targets: Targets) -> torch.Tensor:
+    """(..., 2) matched pairs and matched things of (..., B, Q) assignments,
+    each summed over (B, Q)."""
+    idx = assign.clamp(0, targets.is_thing.shape[1] - 1).long()
+    matched = assign >= 0
+    thing = targets.is_thing.expand(idx.shape[:-2] + targets.is_thing.shape).gather(-1, idx)
+    return torch.stack([matched.flatten(-2).sum(-1), (matched & thing).flatten(-2).sum(-1)],
+                       -1).float()
 
 
 def loss_boxes(boxes, iou_logits, assign, targets: Targets, num_boxes,
-               panoptic_box_loss: bool = True) -> Dict[str, torch.Tensor]:
+               counts: torch.Tensor) -> Dict[str, torch.Tensor]:
     """L1 + GIoU on matched pairs, weighted to things only (renormalised), and
-    the IoU head's BCE against the detached pairwise IoU."""
+    the IoU head's BCE against the detached pairwise IoU. ``counts``: the
+    (pairs, things) of ``pair_counts``, reduced by ``global_count``."""
     matched, gt_boxes, _, is_thing, _ = gather_targets(targets, assign)
     m = matched.float()
-    thing = (is_thing.float() if panoptic_box_loss else torch.ones_like(m)) * m
-    n_pairs = m.sum()
-    adj = n_pairs / thing.sum().clamp(min=1e-6)
+    thing = is_thing.float() * m
+    n_pairs, n_thing = counts.unbind(-1)
+    unit = count_unit()
+    adj = n_pairs / n_thing.clamp(min=1e-6 * unit)
     src, tgt = boxes.float(), gt_boxes.float()
     l1 = (src - tgt).abs().sum(-1) * thing * adj
     giou = elementwise_generalized_box_iou(box_cxcywh_to_xyxy(src), box_cxcywh_to_xyxy(tgt))
-    out = {"loss_bbox": (l1 * m).sum() / num_boxes.clamp(min=1.0),
-           "loss_giou": ((1.0 - giou) * thing * adj * m).sum() / num_boxes.clamp(min=1.0)}
+    out = {"loss_bbox": (l1 * m).sum() / num_boxes.clamp(min=unit),
+           "loss_giou": ((1.0 - giou) * thing * adj * m).sum() / num_boxes.clamp(min=unit)}
     if iou_logits is not None:
         ious = elementwise_box_iou(box_cxcywh_to_xyxy(src), box_cxcywh_to_xyxy(tgt)).detach()
         logit = iou_logits[..., 0].float()
         bce = logit.clamp(min=0) - logit * ious + torch.log1p(torch.exp(-logit.abs()))
-        out["loss_boxiou"] = (bce * thing * adj * m).sum() / n_pairs.clamp(min=1.0)
+        out["loss_boxiou"] = (bce * thing * adj * m).sum() / n_pairs.clamp(min=unit)
     return out
 
 
@@ -99,11 +119,12 @@ def loss_masks_pointwise(keys: Keys, mask_logits, gt_masks, pair_valid, num_boxe
     with torch.no_grad():
         labels = point_sample(gm, coords)
     v = pair_valid.reshape(b * k).float()
-    focal = (_focal(logits, labels, 0.25, 2.0).mean(-1) * v).sum() / num_boxes.clamp(min=1.0)
+    unit = count_unit()
+    focal = (_focal(logits, labels, 0.25, 2.0).mean(-1) * v).sum() / num_boxes.clamp(min=unit)
     p = logits.sigmoid()
     numer = 2 * (p * labels * v[:, None]).sum(-1)
     denom = (p * v[:, None]).sum(-1) + (labels * v[:, None]).sum(-1)
-    dice = ((1 - (numer + 1) / (denom + 1)) * v).sum() / num_boxes.clamp(min=1.0)
+    dice = ((1 - (numer + 1) / (denom + 1)) * v).sum() / num_boxes.clamp(min=unit)
     return {"loss_mask": focal, "loss_dice": dice}
 
 
@@ -169,7 +190,6 @@ def criterion_pass(keys: Keys, layer_outputs: Dict[str, torch.Tensor], targets: 
     refs = layer_outputs.get("refs")
     mask_embeds = layer_outputs.get("mask_embeds")
     n_layers, b = classes.shape[:2]
-    num_gt = targets.valid.sum().float()
     ksplit = [k.split(2) for k in keys.split(n_layers)]
     k_match_all = [k[0] for k in ksplit]
     k_pts_all = [k[1] for k in ksplit]
@@ -187,7 +207,7 @@ def criterion_pass(keys: Keys, layer_outputs: Dict[str, torch.Tensor], targets: 
             n_pts = min(cfg.num_points, 2048)
             costs = []
             for lid in range(n_layers):
-                bkeys = k_match_all[lid].split(b)
+                bkeys = k_match_all[lid].split(b * data_size())
                 if mask_embeds is not None:
                     mc = mask_match_costs_embed(bkeys, mask_embeds[lid], pixel_feats,
                                                 targets.masks, n_pts, cfg.mask_weight,
@@ -207,20 +227,25 @@ def criterion_pass(keys: Keys, layer_outputs: Dict[str, torch.Tensor], targets: 
             assign_all = auction_assignment(torch.cat(costs), _rep(targets.valid, n_layers)
                                             ).reshape(n_layers, b, -1)
 
+    # the GT count and each layer's (pairs, things), over the global batch
+    counts = global_count(torch.cat([targets.valid.sum().float()[None],
+                                     pair_counts(assign_all, targets).reshape(-1)]))
+    num_gt, layer_counts = counts[0], counts[1:].reshape(n_layers, 2)
+    unit = count_unit()
     stacked: Dict[str, list] = {}
     for lid in range(n_layers):
         assign = assign_all[lid]
-        matched_count = (assign >= 0).sum().float()
+        matched_count = layer_counts[lid, 0]
         if matcher == "fixed":
-            num_boxes = matched_count.clamp(min=1.0)
+            num_boxes = matched_count.clamp(min=unit)
         elif matcher == "ota" and ota_normalize_by_matches:
             num_boxes = matched_count
         else:
-            num_boxes = num_gt.clamp(min=1.0)
+            num_boxes = num_gt.clamp(min=unit)
         out = {"loss_ce": loss_labels_vl(classes[lid], assign, targets, text_mask, num_boxes,
                                          alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)}
         out.update(loss_boxes(boxes[lid], ious[lid] if ious is not None else None, assign,
-                              targets, num_boxes))
+                              targets, num_boxes, counts=layer_counts[lid]))
         if with_masks and (ctrl is not None or mask_embeds is not None):
             sel_q, sel_valid = select_matched(assign, max_matched)
             # mask supervision past max_matched is dropped; 'matchdrop' counts it
@@ -266,11 +291,13 @@ def encoder_loss_pass(enc_class, enc_boxes, targets: Targets, text_mask, cfg: Lo
         assign = hungarian_vl_match(_sigmoid_f32(enc_class), enc_boxes.detach().float(),
                                     targets.boxes, pm, targets.valid, cfg.class_weight,
                                     cfg.bbox_weight, cfg.giou_weight)
-    num_boxes = targets.valid.sum().float().clamp(min=1.0)
+    counts = global_count(torch.cat([targets.valid.sum().float()[None],
+                                     pair_counts(assign, t)]))
+    num_boxes = counts[0].clamp(min=count_unit())
     out = {"loss_ce_enc": loss_labels_vl(enc_class, assign, t, tm, num_boxes,
                                          alpha=cfg.focal_alpha, gamma=cfg.focal_gamma)}
-    out.update({f"{kk}_enc": v for kk, v in loss_boxes(enc_boxes, None, assign, t,
-                                                        num_boxes).items()})
+    out.update({f"{kk}_enc": v for kk, v in loss_boxes(enc_boxes, None, assign, t, num_boxes,
+                                                        counts=counts[1:]).items()})
     return out
 
 

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from hipie_torch.losses.point_features import point_sample
 from hipie_torch.ops.box_ops import box_cxcywh_to_xyxy, box_iou, generalized_box_iou
+from hipie_torch.parallel.mesh import shard_rows
 
 BIG = 1e5
 CHECK_EVERY = 32          # loop iterations between two convergence checks on the host
@@ -194,8 +195,10 @@ def _mask_costs(mp: torch.Tensor, tp: torch.Tensor, num_points: int, cost_mask: 
 
 
 def _match_coords(keys, num_points: int, dev) -> torch.Tensor:
-    """(G, P, 2) uniform points, one key of ``keys`` (a list of G) each."""
-    return torch.stack([k.uniform((num_points, 2), dev) for k in keys])
+    """(G, P, 2) uniform points, one key of ``keys`` each. Under data
+    parallelism ``keys`` are the global batch's (G x the group's size): every
+    rank draws them all, in lockstep, and keeps its own G."""
+    return shard_rows(torch.stack([k.uniform((num_points, 2), dev) for k in keys]))
 
 
 @torch.no_grad()
@@ -204,8 +207,8 @@ def mask_match_costs(keys, mask_logits: torch.Tensor, gt_masks: torch.Tensor,
                      cost_dice: float = 5.0) -> torch.Tensor:
     """Point-sampled sigmoid-CE + dice matching costs (matcher_mask.py).
 
-    keys: G keys, one per problem; mask_logits (G, Q, H, W); gt_masks (G, N, H', W')
-    -> (G, Q, N)."""
+    keys: G keys, one per problem (the global batch's under data
+    parallelism); mask_logits (G, Q, H, W); gt_masks (G, N, H', W') -> (G, Q, N)."""
     coords = _match_coords(keys, num_points, mask_logits.device)
     mp = point_sample(mask_logits, coords[:, None].expand(-1, mask_logits.shape[1], -1, -1))
     tp = point_sample(gt_masks, coords[:, None].expand(-1, gt_masks.shape[1], -1, -1))

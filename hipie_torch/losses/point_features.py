@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from hipie_torch.ops.bilinear import bilinear_sample
-from hipie_torch.utils.rng import Keys
+from hipie_torch.utils.rng import Keys, batch_uniform
 
 
 def point_sample(masks: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
@@ -36,6 +36,8 @@ def uncertain_point_coords(keys: Keys, mask_logits: torch.Tensor, num_points: in
                            importance_sample_ratio: float = 0.75) -> torch.Tensor:
     """Uncertainty-oversampled random point coords (N, P, 2) in [0, 1] for
     (N, H, W) logits (reference get_uncertain_point_coords_with_randomness).
+    N is batch-major (images, then masks), so that under data parallelism each
+    rank keeps its rows of the global batch's draws.
 
     The pick of the most uncertain points is an exact top-k over f32 samples:
     the JAX package's ``exact_topk=True``. Its default ``lax.approx_max_k``
@@ -47,12 +49,12 @@ def uncertain_point_coords(keys: Keys, mask_logits: torch.Tensor, num_points: in
     n_sampled = int(num_points * oversample_ratio)
     n_unc = int(importance_sample_ratio * num_points)
     n_rand = num_points - n_unc
-    coords = k1.uniform((n, n_sampled, 2), dev)
+    coords = batch_uniform(k1, (n, n_sampled, 2), device=dev)
     if n_unc == 0:
-        return k2.uniform((n, num_points, 2), dev)
+        return batch_uniform(k2, (n, num_points, 2), device=dev)
     logits = point_sample(mask_logits, coords)
     idx = (-logits.abs()).topk(n_unc, dim=1).indices
     picked = coords.gather(1, idx[..., None].expand(-1, -1, 2))
     if n_rand == 0:
         return picked
-    return torch.cat([picked, k2.uniform((n, n_rand, 2), dev)], dim=1)
+    return torch.cat([picked, batch_uniform(k2, (n, n_rand, 2), device=dev)], dim=1)

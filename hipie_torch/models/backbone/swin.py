@@ -30,7 +30,7 @@ import torch.nn as nn
 from hipie_torch.layers import conv_same
 from hipie_torch.models.backbone.vit import (ViTMlp, drop_path, drop_path_rates,
                                              window_partition, window_unpartition)
-from hipie_torch.utils.rng import Keys
+from hipie_torch.utils.rng import Keys, batch_uniform
 
 SWIN_VARIANTS = {
     # name: (embed_dim, depths, num_heads, window) — reference
@@ -192,7 +192,7 @@ class SwinTransformer(nn.Module):
         dev = self.patch_embed.proj.weight.device
         keep = 1.0 - torch.tensor([blk.drop_path for blk in blocks], dtype=torch.float32,
                                   device=dev)
-        u = keys.uniform((len(blocks), 2, batch), device=dev)
+        u = batch_uniform(keys, (len(blocks), 2, batch), axis=2, device=dev)
         return (u < keep[:, None, None]).float()
 
     def forward(self, x, drop_masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:

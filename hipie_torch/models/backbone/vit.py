@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from hipie_torch.layers import gelu, maybe_checkpoint, nchw_to_nhwc, nhwc_to_nchw
 from hipie_torch.ops.vit_attention import vit_global_attention
-from hipie_torch.utils.rng import Keys
+from hipie_torch.utils.rng import Keys, batch_uniform
 
 VIT_VARIANTS = {
     # name: (embed_dim, depth, num_heads, drop_path) — reference vit.py:386-398
@@ -287,7 +287,7 @@ class ViTDet(nn.Module):
         dev = self.pos_embed.device
         keep = 1.0 - torch.tensor([blk.drop_path for blk in self.blocks], dtype=torch.float32,
                                   device=dev)
-        u = keys.uniform((len(self.blocks), 2, batch), device=dev)
+        u = batch_uniform(keys, (len(self.blocks), 2, batch), axis=2, device=dev)
         return (u < keep[:, None, None]).float()
 
     def forward(self, x, drop_masks: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:

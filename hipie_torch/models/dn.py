@@ -9,7 +9,9 @@ ratio / 2; box corners move by a random sign times a magnitude in [0, 1) for
 positive sections and [1, 2) for negative ones, in half-extent units, clamped to
 [0, 1]. Both sections supervise their GT (``gt_assign``). The attention mask
 keeps the matching queries from seeing dn slots and dn groups from seeing each
-other. The random draws come from ``keys`` (hipie_torch/utils/rng.py).
+other. The random draws come from ``keys`` (hipie_torch/utils/rng.py). Under
+data parallelism m is the global batch's and the draws are the global batch's
+rows of this rank, so each rank builds what one process would for its images.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import NamedTuple
 
 import torch
 
+from hipie_torch.parallel.mesh import global_max
 from hipie_torch.utils.misc import inverse_sigmoid
-from hipie_torch.utils.rng import Keys
+from hipie_torch.utils.rng import Keys, batch_randint, batch_uniform
 
 
 class CDNQueries(NamedTuple):
@@ -41,7 +44,8 @@ def prepare_cdn(keys: Keys, labels: torch.Tensor, boxes: torch.Tensor, valid: to
     pad = 2 * max(dn_number, n)
     k_label, k_box_sign, k_box_mag, k_flip = keys.split(4)
 
-    m = valid.sum(-1).max().clamp(min=1)                      # the batch's largest GT count
+    # the global batch's largest GT count (over the data-parallel ranks)
+    m = global_max(valid.sum(-1).max()).clamp(min=1)
     groups = ((2 * dn_number) // (2 * m)).clamp(min=1)
     s = torch.arange(pad, device=dev)
     sec = s // m
@@ -53,16 +57,16 @@ def prepare_cdn(keys: Keys, labels: torch.Tensor, boxes: torch.Tensor, valid: to
     slot_valid = valid.gather(1, gt_b) & slot_active[None]
 
     if label_noise_ratio > 0:
-        p = k_label.uniform((b, pad), dev)
-        rand_label = k_flip.randint(0, num_classes, (b, pad), dev)
+        p = batch_uniform(k_label, (b, pad), device=dev)
+        rand_label = batch_randint(k_flip, 0, num_classes, (b, pad), device=dev)
         noised_labels = torch.where(p < label_noise_ratio * 0.5, rand_label, slot_labels)
     else:
         noised_labels = slot_labels
     noised_labels = noised_labels.clamp(0, num_classes - 1)
 
     is_neg = (sec % 2 == 1)[None, :, None]
-    sign = k_box_sign.randint(0, 2, (b, pad, 4), dev).float() * 2.0 - 1.0
-    mag = k_box_mag.uniform((b, pad, 4), dev)
+    sign = batch_randint(k_box_sign, 0, 2, (b, pad, 4), device=dev).float() * 2.0 - 1.0
+    mag = batch_uniform(k_box_mag, (b, pad, 4), device=dev)
     mag = torch.where(is_neg, mag + 1.0, mag)
     wh = slot_boxes[..., 2:]
     half = torch.cat([wh / 2, wh / 2], -1)

@@ -27,8 +27,9 @@ Branches, as in JAX:
   * ``bg_lang_weights``: language-derived bg queries, the RAW (pre-fusion)
     ``lang_hidden`` pooled by these weights and passed through the same
     ``resizer`` as the pooled-language content: (K, B, L) in training gives one
-    query set shared across the batch, (K, L) at inference one per image. They
-    take zero-box references.
+    query set shared across the batch (under data parallelism the global
+    batch: the ranks' pools are summed), (K, L) at inference one per image.
+    They take zero-box references.
   * ``decouple_tgt=False``: the last ``num_queries`` slots take the resized
     pooled language feature as content; the dn, bg_lang and bg slots keep
     theirs.
@@ -48,6 +49,7 @@ from hipie_torch.models.fusion import BiAttentionBlock
 from hipie_torch.models.heads import FeatureResizer, agg_lang_feat
 from hipie_torch.models.msda_module import MSDeformAttn
 from hipie_torch.models.text.bert import BertLayer
+from hipie_torch.parallel.mesh import global_sum
 from hipie_torch.utils.misc import get_valid_ratio, inverse_sigmoid, sine_position_embedding_1d
 
 Shapes = Tuple[Tuple[int, int], ...]
@@ -255,6 +257,9 @@ class VLDeformableTransformer(nn.Module):
             # pooled in f32 from the raw tokens, then resized in the model's dtype
             eq = "kbl,bld->kd" if bg_lang_weights.dim() == 3 else "kl,bld->bkd"
             q_lang = torch.einsum(eq, bg_lang_weights.float(), lang_hidden.float())
+            if bg_lang_weights.dim() == 3:
+                # shared by the global batch: the data-parallel ranks' pools summed
+                q_lang = global_sum(q_lang)
             bg_lang = self.resizer(q_lang.to(dtype))
             if bg_lang.dim() == 2:
                 bg_lang = bg_lang[None].expand(b, -1, -1)

@@ -5,7 +5,7 @@ Trainer.test + inference_on_dataset + the evaluator zoo):
 
     python -m hipie_torch.tools.eval_net --config-file configs/overfit_tiny.yaml \\
         --weights run/model_0001500.pth --dataset coco_panoptic_train [--device cpu] \\
-        [model.clip.enabled True ...]
+        [--num-gpus N] [--dist-url tcp://host:port] [model.clip.enabled True ...]
 
 The model is HIPIEModel(cfg.model) with random weights from ``cfg.seed``,
 then ``--weights`` (a HIPIE state_dict under the reference's names, or a
@@ -13,6 +13,11 @@ train_net checkpoint) through ``resume_or_load``; it runs in f32 on the card
 unless ``--device cpu`` is given (without a card the default raises).
 RefCOCO splits give oIoU, sem-seg datasets mIoU, the rest box and mask AP
 and, for panoptic datasets, PQ.
+
+``--num-gpus N`` (or torchrun) shards the dataset over N ranks, as train_net
+does: each predicts every N-th image and every rank computes the metrics of
+one process from the gathered predictions (hipie_torch/evaluation/
+evaluator.py); rank 0 prints them. ``--tp`` raises above 1.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import json
 from typing import Dict, Optional, Sequence
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Evaluate HIPIE (PyTorch port).")
     p.add_argument("--dataset", default="coco_2017_val")
     p.add_argument("--preset", default="r50_coco_panoptic")
@@ -33,8 +38,27 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     p.add_argument("--tasks", default="bbox,segm")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("opts", nargs="*", default=[], help="config overrides: key value ...")
-    args = p.parse_args(argv)
+    from hipie_torch.tools.train_net import add_launch_args
 
+    add_launch_args(p)
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Evaluate as the arguments say; returns the metrics (None where the ranks
+    ran in processes of their own)."""
+    from hipie_torch.parallel.mesh import create_mesh, launch
+    from hipie_torch.train.step import _device_of
+
+    args = parse_args(argv)
+    create_mesh(tp=args.tp)
+    _device_of(args.device)
+    return launch(evaluate, args.num_gpus, args.dist_url, args.device, args)
+
+
+def evaluate(args: argparse.Namespace, dev) -> Dict[str, float]:
+    """The metrics of ``parse_args``'s arguments on ``dev``, as this rank of
+    the process group if one is initialised (its share of the images)."""
     import torch
 
     from hipie_torch.data.datasets import DATASET_METADATA, get_dataset
@@ -42,13 +66,14 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
                                                   evaluate_refcoco_dataset,
                                                   evaluate_semseg_dataset)
     from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.parallel.multihost import is_main_process
     from hipie_torch.predictor import HIPIEPredictor
     from hipie_torch.tools.train_net import build_config, build_tokenizer
     from hipie_torch.train.checkpoint import resume_or_load
     from hipie_torch.train.step import TrainState, _device_of
     from hipie_torch.utils.weights import random_init_
 
-    dev = _device_of(args.device)
+    dev = _device_of(dev)
     cfg = build_config(args.config_file, args.preset, args.opts)
     tok = build_tokenizer(args.vocab)
     with torch.device(dev):
@@ -74,7 +99,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
         results = evaluate_detection_dataset(
             predictor, records, len(meta["class_names"]), meta["class_is_thing"],
             tasks=tasks, max_images=max_images)
-    print(json.dumps(results, indent=2))
+    if is_main_process():
+        print(json.dumps(results, indent=2))
     return results
 
 

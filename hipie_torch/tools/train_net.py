@@ -4,20 +4,31 @@ with evaluation every ``test.eval_period`` steps.
 The port's twin of tools/train_net.py (reference projects/HIPIE/train_net.py):
 
     python -m hipie_torch.tools.train_net --config-file configs/overfit_tiny.yaml \\
-        [--resume] [--weights model.pth] [--device cuda|cpu] [KEY VALUE ...]
+        [--resume] [--weights model.pth] [--device cuda|cpu] [--num-gpus N]
+        [--dist-url tcp://host:port] [KEY VALUE ...]
+    torchrun --nproc-per-node N -m hipie_torch.tools.train_net ...
 
 It builds ``create_train_state`` -> one ``make_train_step`` per task in the
-training mix -> ``Trainer`` over a ``TrainLoader`` of batch
-``solver.ims_per_batch``, and an inline evaluation of ``data.test_dataset``
-(unless ``--no-eval`` or ``test.eval_period`` 0). It runs on the card unless
-``--device cpu`` is given; without a card the default raises. The JAX tool's
-``--tp`` (XLA tensor-parallel sharding) is not taken; ``--tensorboard`` raises
-(not ported).
+training mix -> ``Trainer`` over a ``TrainLoader``, and an inline evaluation of
+``data.test_dataset`` (unless ``--no-eval`` or ``test.eval_period`` 0). It runs
+on the card unless ``--device cpu`` is given; without a card the default
+raises.
+
+``--num-gpus N`` trains data-parallel on N ranks of this machine, one card
+each over NCCL (``--device cpu``: N gloo ranks on the host), as the reference's
+launch.py does; under torchrun each process is one rank. ``--dist-url`` is the
+ranks' rendezvous (default: a free localhost port). Each rank takes
+``max(solver.ims_per_batch // N, 1)`` images a step (JAX's tools/train_net.py
+rule), from its shard of the loader; the step is the global batch's
+(hipie_torch/train/step.py). More ranks than cards raise. ``--tp`` (JAX's
+tensor-parallel sharding) raises above 1: the port is data-parallel only.
+``--tensorboard`` raises (not ported).
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional, Sequence
 
 
@@ -34,8 +45,18 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="disable eval-during-training (EvalHook)")
     p.add_argument("--tensorboard", action="store_true", help="not ported: raises")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    add_launch_args(p)
     p.add_argument("opts", nargs="*", default=[])
     return p.parse_args(argv)
+
+
+def add_launch_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--num-gpus", type=int, default=1,
+                   help="data-parallel ranks on this machine, one card each")
+    p.add_argument("--dist-url", default="", help="the ranks' rendezvous (default: a free "
+                   "localhost port)")
+    p.add_argument("--tp", type=int, default=1, help="tensor parallelism: not ported, raises "
+                   "above 1")
 
 
 def build_config(config_file: str, preset: str, opts: Sequence[str]):
@@ -54,9 +75,11 @@ def build_tokenizer(vocab: str):
     return WordPieceTokenizer.from_vocab_file(vocab) if vocab else WordPieceTokenizer.toy()
 
 
-def build_trainer(argv: Optional[Sequence[str]] = None):
+def build_trainer(argv: Optional[Sequence[str]] = None, device=None):
     """The Trainer the arguments describe (state, steps, loader, eval), before
-    any resume or step; returns (trainer, parsed arguments)."""
+    any resume or step, on ``device`` (default ``--device``), as this rank of
+    the process group if one is initialised; returns (trainer, parsed
+    arguments)."""
     args = parse_args(argv)
     if args.tensorboard:
         raise NotImplementedError("--tensorboard is not ported")
@@ -65,15 +88,20 @@ def build_trainer(argv: Optional[Sequence[str]] = None):
     from hipie_torch.data.loader import TrainLoader
     from hipie_torch.data.mapper import HIPIEMapper
     from hipie_torch.evaluation.evaluator import make_inline_eval_fn
+    from hipie_torch.parallel.mesh import create_mesh, data_rank, data_size
     from hipie_torch.train.step import _device_of, create_train_state, make_train_step
     from hipie_torch.train.trainer import Trainer
 
-    dev = _device_of(args.device)
+    create_mesh(tp=args.tp)
+    dev = _device_of(device if device is not None else args.device)
     cfg = build_config(args.config_file, args.preset, args.opts)
     tok = build_tokenizer(args.vocab)
+    rank, n = data_rank(), data_size()
+    # each rank its own augmentation stream (the reference seeds seed + rank)
     mapper = HIPIEMapper(cfg.data, tok, is_train=True, max_gt=cfg.model.max_insts_num,
-                         seed=cfg.seed)
-    loader = TrainLoader(cfg.data, mapper, cfg.solver.ims_per_batch, seed=cfg.seed)
+                         seed=cfg.seed + rank)
+    loader = TrainLoader(cfg.data, mapper, max(cfg.solver.ims_per_batch // n, 1), seed=cfg.seed,
+                         shard_rank=rank, num_shards=n)
     state = create_train_state(cfg, seed=cfg.seed, device=dev)
     # one step per task in the training mix: batches are dataset-homogeneous,
     # so each batch has one task (reference train_net.py routes by dataset)
@@ -86,12 +114,24 @@ def build_trainer(argv: Optional[Sequence[str]] = None):
     return trainer, args
 
 
-def main(argv: Optional[Sequence[str]] = None):
-    """Train as the arguments say; returns the Trainer."""
-    trainer, args = build_trainer(argv)
+def _train(argv, device):
+    trainer, args = build_trainer(argv, device)
     trainer.resume_or_load(args.weights or None, resume=args.resume)
     trainer.train()
     return trainer
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    """Train as the arguments say; returns the Trainer (None where the ranks
+    ran in processes of their own)."""
+    from hipie_torch.parallel.mesh import create_mesh, launch
+    from hipie_torch.train.step import _device_of
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = parse_args(argv)
+    create_mesh(tp=args.tp)
+    _device_of(args.device)
+    return launch(_train, args.num_gpus, args.dist_url, args.device, argv)
 
 
 if __name__ == "__main__":

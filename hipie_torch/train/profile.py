@@ -11,8 +11,9 @@ warm-up steps, then ``--steps`` steps timed by the host clock (each ends in a
 synchronize), the same steps with CUDA events at the step's named ranges
 (hipie_torch/train/step.py ``scope``: cdn, forward, each criterion pass
 (crit_fg, crit_bg or crit_bg_lang, crit_enc, crit_gt_dn, crit_maskdino,
-crit_maskdino_dn, crit_maskdino_interm), backward, optimizer) for the device
-time between a range's start and end, and
+crit_maskdino_dn, crit_maskdino_interm), backward, allreduce (empty without
+a process group), optimizer) for the device time between a range's start and
+end, and
 one step under torch.profiler for the device's busy time (the sum of its
 kernels' and copies' times), idle share and top kernels, with the device time
 and launches of K-A, K-E, K-B and K-D.

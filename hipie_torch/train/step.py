@@ -27,7 +27,17 @@ is eager; it runs on the card unless the caller passes ``device="cpu"``. Its
 parts carry torch.profiler ranges ("cdn", "forward", "crit_fg", "crit_bg" or
 "crit_bg_lang", "crit_enc",
 "crit_gt_dn", "crit_maskdino", "crit_maskdino_dn", "crit_maskdino_interm",
-"backward", "optimizer"), which ``python3 -m hipie_torch.train.profile`` reads.
+"backward", "allreduce", "optimizer"), which ``python3 -m hipie_torch.train.profile``
+reads.
+
+Data parallelism (hipie_torch/parallel/mesh.py) is the same step on every
+rank over its share of the global batch, after ``init_distributed``: CDN's
+group count, every loss normaliser and the batch-shaped random draws are the
+global batch's (the modules ask the process group), the language-derived bg
+queries pool the global batch's prompts, and ``reduce_gradients`` averages
+the gradients between the backward and the optimizer ("allreduce"), so that
+every rank takes the update one process takes on the global batch. Without a
+process group none of this runs.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from hipie_torch.losses.criterion import (Targets, apply_weight_dict, criterion_
                                           encoder_loss_pass, merge_loss_dicts)
 from hipie_torch.models.dn import prepare_cdn
 from hipie_torch.models.mask_head import dynamic_conv_param_sizes
+from hipie_torch.parallel.mesh import gather_batch, reduce_gradients, shard_rows
 from hipie_torch.train.bg_lang import prepare_bg_lang_queries
 from hipie_torch.train.optimizer import GroupedAdamW
 from hipie_torch.utils.rng import Keys
@@ -108,8 +119,14 @@ def make_loss_fn(model: torch.nn.Module, cfg: HIPIEConfig, task: str = "detectio
         dn_kwargs = {}
         with torch.no_grad(), scope("cdn"):
             if n_bgl > 0:
-                bgl = prepare_bg_lang_queries(k_bgl, t.labels, t.positive_map, t.is_thing,
-                                              t.valid, batch.lang_mask, mc.num_classes, n_bgl)
+                # the slots are shared by the global batch: built from its
+                # targets, each rank keeps its images' weights and assignment
+                bgl = prepare_bg_lang_queries(
+                    k_bgl, *(gather_batch(x) for x in (t.labels, t.positive_map, t.is_thing,
+                                                       t.valid, batch.lang_mask)),
+                    mc.num_classes, n_bgl)
+                bgl = bgl._replace(weights=shard_rows(bgl.weights, 1),
+                                   assign=shard_rows(bgl.assign))
                 dn_kwargs["bg_lang_weights"] = bgl.weights
             if mc.dn.enabled:
                 cdn = prepare_cdn(k_dn, t.labels, t.boxes, t.valid, mc.num_classes, n_match,
@@ -271,6 +288,8 @@ def make_train_step(cfg: HIPIEConfig, state: TrainState, task: str = "detection"
         total, metrics = loss_fn(batch, keys)
         with scope("backward"):
             total.backward()
+        with scope("allreduce"):
+            reduce_gradients(state.optimizer.params)
         with scope("optimizer"):
             norm = state.optimizer.step()
         if norm is not None:

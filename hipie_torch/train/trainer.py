@@ -18,6 +18,15 @@ the first result key) is kept as ``model_best`` with its value in
 ``best_checkpoint``, which a resumed run reads back. ``checkpoints=False``
 turns the saves off for runs that only measure steps (chip_smoke.py's
 synthetic-batch phases, ``hipie_torch.train.profile``).
+
+Under data parallelism (one Trainer a rank, after
+``hipie_torch.parallel.mesh.init_distributed``) the Trainer gives every rank
+rank 0's parameters and buffers at its start, logs each step's metrics as
+their mean over the ranks (``reduce_metrics``), and writes ``metrics.json``,
+the console log and the checkpoints on rank 0 only, each save followed by a
+barrier (``sync``); every rank resumes from the same file (read to the host,
+then copied to the rank's device). The random keys are seeded alike on every
+rank: the batch-shaped draws take each rank's rows of the global batch's.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from typing import Callable, Dict, Iterator, List, Optional, Union
 import torch
 
 from hipie_torch.config import HIPIEConfig
+from hipie_torch.parallel.mesh import broadcast_module
+from hipie_torch.parallel.multihost import is_main_process, reduce_metrics, sync
 from hipie_torch.train.checkpoint import resume_or_load, save_checkpoint
 from hipie_torch.train.optimizer import lr_schedule
 from hipie_torch.train.step import TrainBatch, TrainState, _device_of
@@ -63,6 +74,8 @@ class Trainer:
         self.log_period = log_period
         self.history: List[Dict[str, float]] = []
         self._best_metric = float("-inf")
+        self.main = is_main_process()
+        broadcast_module(state.model)
 
     def resume_or_load(self, weights: Optional[str] = None, resume: bool = True) -> bool:
         """Resume from ``cfg.output_dir``'s last checkpoint (and the best
@@ -117,20 +130,23 @@ class Trainer:
                          last=it >= max_iter)
             self.profiler.maybe_stop(it)
             if self.checkpoints and (it % cfg.checkpoint_period == 0 or it == max_iter):
-                save_checkpoint(self.cfg.output_dir, self.state, it)
+                if self.main:
+                    save_checkpoint(self.cfg.output_dir, self.state, it)
+                sync()
             if self.eval_fn is not None and it % eval_period == 0:
                 self._evaluate(it)
-        self.storage.write_json()
+        if self.main:
+            self.storage.write_json()
         return self.state
 
     def _record(self, metrics, lr, step_time, data_time, task, it, max_iter, last=False):
-        host = {k: float(v) for k, v in metrics.items()}
+        host = reduce_metrics({k: float(v) for k, v in metrics.items()})
         if task is not None and isinstance(self.train_step, dict) and len(self.train_step) > 1:
             # multi-task runs: each task's total, so each task's descent shows
             host[f"total_loss_{task}"] = host.get("total_loss", 0.0)
         self.history.append({**host, "lr": lr, "time_s": step_time, "data_time_s": data_time,
                              "task": task, "iter": it})
-        if last or it % self.log_period == 0:
+        if self.main and (last or it % self.log_period == 0):
             self.storage.put_scalars(**host)
             self.storage.log_console(max_iter, lr=lr)
             self.storage.write_json()
@@ -146,8 +162,10 @@ class Trainer:
             val = float(results[metric])
             if val > self._best_metric:
                 self._best_metric = val
-                save_checkpoint(self.cfg.output_dir, self.state, it, name="model_best",
-                                update_marker=False)
-                with open(os.path.join(self.cfg.output_dir, "best_checkpoint"), "w") as f:
-                    f.write(f"model_best iter={it} {metric}={val}\n")
+                if self.main:
+                    save_checkpoint(self.cfg.output_dir, self.state, it, name="model_best",
+                                    update_marker=False)
+                    with open(os.path.join(self.cfg.output_dir, "best_checkpoint"), "w") as f:
+                        f.write(f"model_best iter={it} {metric}={val}\n")
+                sync()
         return results

@@ -7,6 +7,12 @@ the port keeps that structure so that every draw has its place in it:
 ``torch.Generator`` in call order (split and fold_in return the same stream),
 so a run is fixed by its seed. A test hands in keys that replay another
 source's draws instead.
+
+Under data parallelism (hipie_torch/parallel/mesh.py) a draw whose shape
+carries the batch goes through ``batch_uniform`` / ``batch_randint``: every
+rank draws the global batch's shape from the same keys and keeps its own rows,
+so the ranks' keys advance in lockstep and each rank gets the draws one
+process with the global batch gives its images.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import torch
+
+from hipie_torch.parallel.mesh import data_size, shard_rows
 
 
 class Keys:
@@ -54,3 +62,21 @@ class GeneratorKeys(Keys):
         out = torch.randint(low, high, tuple(shape), generator=self.generator,
                             device=self.generator.device)
         return out.to(device) if device is not None else out
+
+
+def _global(shape: Sequence[int], axis: int) -> List[int]:
+    shape = list(shape)
+    shape[axis] *= data_size()
+    return shape
+
+
+def batch_uniform(keys: Keys, shape: Sequence[int], axis: int = 0, device=None) -> torch.Tensor:
+    """``keys.uniform(shape)`` where ``shape[axis]`` is this rank's batch (or
+    batch-major rows): drawn at the global batch's shape, this rank's rows kept."""
+    return shard_rows(keys.uniform(_global(shape, axis), device), axis)
+
+
+def batch_randint(keys: Keys, low: int, high: int, shape: Sequence[int], axis: int = 0,
+                  device=None) -> torch.Tensor:
+    """``keys.randint`` as ``batch_uniform`` draws."""
+    return shard_rows(keys.randint(low, high, _global(shape, axis), device), axis)

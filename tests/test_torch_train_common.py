@@ -59,6 +59,13 @@ def batch_arrays(seed: int = 0, n_valid=(4, 2)):
                              is_thing=is_thing, valid=valid))
 
 
+def rank_rows(arrays, rank):
+    """Image ``rank`` of a batch from ``batch_arrays``, as a batch of one."""
+    take = lambda v: np.ascontiguousarray(v[rank:rank + 1])
+    return {k: ({kk: take(vv) for kk, vv in v.items()} if isinstance(v, dict) else take(v))
+            for k, v in arrays.items()}
+
+
 def jax_batch(arrays):
     import jax.numpy as jnp
 
@@ -185,7 +192,7 @@ def loss_records(arrays, key_seed: int = 1, **overrides):
     gradient) is swapped for its f32 twin. Each record holds "total", "grads"
     (reference names; the port's ``p.grad``, None where none flowed), "terms"
     (each weighted loss dict), "assign" (every matcher assignment) and, for the
-    port, "labels" (optimizer groups) and "replayed"."""
+    port, "labels" (optimizer groups), "replayed" and "model"."""
     import jax
 
     import hipie_tpu.losses.criterion as jcrit
@@ -257,5 +264,6 @@ def loss_records(arrays, key_seed: int = 1, **overrides):
     finally:
         tcrit.uncertain_point_coords, tcrit.gather_targets, tstep.apply_weight_dict = tsaved
     got.update(total=float(total.detach()), replayed=len(want["coords"]) - len(replay),
-               grads={n: p.grad for n, p in model.named_parameters()}, labels=labels)
+               grads={n: p.grad for n, p in model.named_parameters()}, labels=labels,
+               model=model)
     return want, got
