@@ -152,10 +152,26 @@ prints no result line):
     from the ground truth, imperfectly (GtPredictor: every metric strictly
     between 0 and 100, where phase 9's few steps score 0), every metric equal
     to one process's. Each process's peak memory.
-Every shape at which phases 5, 8 and 13 launched K-A, every shape at which
-phases 5 to 13 launched K-B, every shape at which phases 7 to 9, 12 and 13
-launched K-D, and every shape at which phases 8 and 13 launched K-E must be
-one that phase 3 checked.
+14. last modules (phase_last_modules): (a) 3 training steps each of
+    swin_large_coco_panoptic() and convnext_large_coco_panoptic() as phase 7's
+    (batch 2 at 1024x1024, 100 GT slots, bf16 autocast; K-B and K-D exact a
+    step; finite loss terms and gradients; ms per step, peak memory); (b) 2
+    ViT-H steps with solver.mu_dtype bfloat16: the first moment stored in bf16
+    and the second step's peak at least 1.2 GiB under phase 8's f32 steps'
+    after the first; (c)
+    make_tiny_coco --ade-semseg (the val split as JPEG in the ADE20k layout),
+    eval_net on ade20k_sem_seg_val with phase 9's checkpoint (mIoU finite) and
+    with GtPredictor answering the GT exactly (mIoU 100); (d) the demo CLI on
+    one of those JPEGs, detection and grounding, its files read back; (e) the
+    JPEG decoder on the files committed under tests/data/jpeg/ against cv2's
+    decodes committed beside them (within one level, mean 0.01) and its decode
+    and encode ms at 640x480; (f) BoxInst's losses and logit gradient at N =
+    100, 256x256, K = 3, dilation 2 against the CPU's, with their ms; then the
+    bounds of CLIP's and Swin-L's attention from their shapes.
+Every shape at which phases 5, 8, 13 and 14 launched K-A, every shape at which
+phases 5 to 14 launched K-B, every shape at which phases 7 to 9 and 12 to 14
+launched K-D, and every shape at which phases 8, 13 and 14 launched K-E must
+be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -165,6 +181,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import os
@@ -1465,15 +1482,18 @@ def train_launches(cfg, model, img: int = IMG) -> dict:
 
 
 def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
-                steps: int = TRAIN_STEPS, ranges: bool = False):
+                steps: int = TRAIN_STEPS, ranges: bool = False, require_moved: bool = True):
     """A config (default r50_coco_panoptic()) trained at full width through
     make_train_step and Trainer: f32 master weights, bf16 autocast compute,
     seeded random init, ``steps`` optimizer steps on synthetic batches, the
     launches of every kernel exact each step (``train_launches``). With
     ``ranges``, each step's named ranges (hipie_torch/train/step.py ``scope``)
     are timed by CUDA events, as hipie_torch.train.profile times them, and the
-    step syncs at its end. Returns (launches and times, K-A, K-B, K-D and K-E
-    shapes)."""
+    step syncs at its end. Without ``require_moved``, a trainable parameter
+    with a finite gradient that did not move is counted, not an error
+    (ConvNeXt's blocks sit behind layer scales of 1e-6, and AdamW's step of a
+    gradient far below its eps is below f32 resolution). Returns (launches
+    and times, K-A, K-B, K-D and K-E shapes)."""
     import hipie_torch.models.msda_module as msda_module
     import hipie_torch.ops.ms_deform_attn as msda_ops
     import hipie_torch.ops.vit_attention as vit_ops
@@ -1513,6 +1533,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
 
         timer = _PhaseTimer()
 
+    step_peaks = []                    # each step's peak memory (GiB), the first's from the start
+
     def train_step(st, batch, keys):
         k0, s0 = dict(kernels.LAUNCHES), matcher.HOST_SYNCS[0]
         out = inner(st, batch, keys)
@@ -1521,6 +1543,10 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         if timer is not None:
             torch.cuda.synchronize()
             range_ms.append(timer.take())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            step_peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            torch.cuda.reset_peak_memory_stats()
         return out
 
     weight_fn, scope_fn = step_module.apply_weight_dict, step_module.scope
@@ -1555,7 +1581,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
             kd_designs = dict(msda_ops.BWD_DESIGN_LAUNCHES)
     finally:
         step_module.apply_weight_dict, step_module.scope = weight_fn, scope_fn
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else 0.0
+    peak = (max(step_peaks + [torch.cuda.max_memory_allocated() / 2 ** 30])
+            if dev.type == "cuda" else 0.0)
 
     for i, d in enumerate(terms):
         bad = [k for k, v in d.items() if not torch.isfinite(torch.as_tensor(v)).all()]
@@ -1583,7 +1610,8 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
             spacing = w - torch.nextafter(w, torch.zeros_like(w))
             lr_max = max(opt.schedules[labels[name]](i) for i in range(steps))
             moments = opt.opt.state.get(p, {}).get("exp_avg")
-            if moments is None or not moments.any() or not bool((lr_max < spacing).all()):
+            if require_moved and (moments is None or not moments.any()
+                                  or not bool((lr_max < spacing).all())):
                 raise AssertionError(f"train: parameter {name} did not move in {steps} steps")
             below_resolution.append(name)
     # a global ViT block's attention gets its gradient through K-E: nonzero
@@ -1615,15 +1643,20 @@ def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
         f"{[h['lr'] for h in trainer.history]}, grad norm "
         f"{[round(h['grad_norm'], 4) for h in trainer.history]}; {n_terms} loss terms a step, "
         f"all finite; {len(zero_grad)} trainable tensors with an all-zero gradient "
-        f"{zero_grad[:6]}; {len(below_resolution)} unmoved, their steps below f32 resolution "
-        f"{below_resolution[:4]}")
+        f"{zero_grad[:6]}; {len(below_resolution)} unmoved"
+        + (", their steps below f32 resolution" if require_moved else "")
+        + f" {below_resolution[:4]}")
     log(f"[train] ms per step {[round(t, 1) for t in times]}; after the first: mean "
         f"{np.mean(times[1:]):.1f} ms; peak memory {peak:.2f} GiB; matcher host syncs per step "
         f"{syncs}; kernel launches per step {per_step[-1][0]} (expected {want}); "
         f"{len(through_ke) // 4} global blocks' attention checked for a nonzero gradient; "
         f"card {card}")
     return ({"launches": launches, "per_step": per_step[-1][0], "ms_per_step": times,
-             "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs, "range_ms": range_ms},
+             "peak_gib": peak, "syncs": syncs, "kd_designs": kd_designs, "range_ms": range_ms,
+             "unmoved": len(below_resolution), "trainable": len(before),
+             "step_peaks_gib": step_peaks,
+             "mu_dtypes": sorted({str(st["exp_avg"].dtype) for st in opt.opt.state.values()
+                                  if "exp_avg" in st})},
             ka_shapes, kb_shapes, kd_shapes, ke_shapes)
 
 PIPE_STEPS = 4
@@ -2015,6 +2048,47 @@ def phase_open_vocab(dev, card, calls: int = OV_CALLS):
                     "chunks": len(plan.src_spans), "spec_ms": spec_ms}
 
 
+def swin_attention_library(calls, card) -> dict:
+    """Swin's windowed attention over one call's blocks (their recorded
+    inputs), the module's plain ops against the library call that computes the
+    same function: scaled_dot_product_attention with the relative-position
+    bias and the shift mask folded into one additive bf16 mask (built
+    beforehand and not timed, as K-A's yardstick's mask), with the qkv and
+    output projections on both sides; each summed over the blocks by
+    ``cuda_time_ms``, and the largest relative norm error between the two."""
+    import torch.nn.functional as F
+
+    plain_ms = sdpa_ms = err = 0.0
+    with torch.inference_mode():
+        for mod, x, m in calls:
+            b, n, c = x.shape
+            h = mod.num_heads
+            d = c // h
+            mask = mod.relative_position_bias_table[mod.relative_position_index].reshape(
+                n, n, h).permute(2, 0, 1).float()[None]
+            if m is not None:
+                mask = (mask + m[:, None]).repeat(b // m.shape[0], 1, 1, 1)
+            mask = mask.to(x.dtype).contiguous()
+
+            def sdpa(mod=mod, x=x, mask=mask, b=b, n=n, c=c, h=h, d=d):
+                q, k, v = mod.qkv(x).reshape(b, n, 3, h, d).permute(2, 0, 3, 1, 4)
+                o = F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+                return mod.proj(o.transpose(1, 2).reshape(b, n, c))
+
+            plain = lambda mod=mod, x=x, m=m: mod(x, m)
+            err = max(err, rel_norm_err(sdpa(), plain()))
+            plain_ms += cuda_time_ms(plain, 5)
+            sdpa_ms += cuda_time_ms(sdpa, 5)
+    if not err < 2e-2:
+        raise AssertionError(f"Swin attention: SDPA with the folded mask is {err} from the "
+                             f"plain ops")
+    log(f"[backbones] Swin-L windowed attention over {len(calls)} blocks of one call (qkv and "
+        f"output projections included, CUDA graphs): plain ops {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention with the bias and shift mask folded into one bf16 mask "
+        f"{sdpa_ms:.3f} ms; relative norm error {err:.2e}; card {card}")
+    return {"plain_ms": plain_ms, "sdpa_ms": sdpa_ms, "rel_err": err, "blocks": len(calls)}
+
+
 def phase_backbones(dev, card, calls: int = 2):
     """HIPIEPredictor over swin_large_coco_panoptic() and
     convnext_large_coco_panoptic() at full width in bf16 with seeded random
@@ -2054,10 +2128,12 @@ def phase_backbones(dev, card, calls: int = 2):
         n_params = sum(p.numel() for p in model.parameters())
         n_msda = msda_per_call(mc)
         torch.cuda.reset_peak_memory_stats()
-        times, results = [], []
+        times, results, attn_inputs = [], [], []
+        last_call = lambda: len(times) == calls - 1
+        record = lambda mod, x, m=None: attn_inputs.append((mod, x, m)) if last_call() else None
         with timing_msda(shapes), recording_results(predictor_module, "hipie_inference", results), \
                 timing_calls(backbone, "forward") as bb_ev, \
-                timing_calls(swin_module.SwinAttention, "forward") as attn_ev:
+                timing_calls(swin_module.SwinAttention, "forward", record) as attn_ev:
             for i in range(calls):
                 img = rng.randint(0, 256, R50_IMAGE + (3,)).astype(np.uint8)
                 kernels.reset_launch_counts()
@@ -2088,6 +2164,10 @@ def phase_backbones(dev, card, calls: int = 2):
         records[mc.backbone.name] = {"ms": times, "backbone_ms": bb_ms, "peak_gib": peak,
                                      "backbone_params": n_backbone, "kb_per_call": n_msda,
                                      "attention_ms": attn_ms}
+        if attn_inputs:
+            records[mc.backbone.name]["attention_library"] = swin_attention_library(
+                attn_inputs, card)
+            del attn_inputs[:]
         del pred, model
         torch.cuda.empty_cache()
     return shapes, records
@@ -2519,16 +2599,24 @@ class GtPredictor:
     image k's instances are its GT segments shifted k + 1 pixels right at
     seeded scores plus 3k spurious ones (the images' detection counts
     differ), its panoptic map the GT's shifted alike, without its first
-    segment on odd k, its semantic map the GT's with a band relabelled.
-    Images are told apart by their bytes."""
+    segment on odd k, its semantic map the GT's with a band relabelled
+    (``exact``: the GT's as it is). A record without a panoptic GT (a
+    semantic-segmentation dataset's) gets the semantic map alone. Images are
+    told apart by their bytes."""
 
-    def __init__(self, records):
+    def __init__(self, records, exact: bool = False):
         self.digest = lambda img: hashlib.sha1(np.ascontiguousarray(img).tobytes()).hexdigest()
         self.records = {self.digest(r["image"]): (k, r) for k, r in enumerate(records)}
+        self.exact = exact
 
     def __call__(self, img, task="detection", test_categories=None, test_is_thing=None,
                  score_thresh=0.0):
         k, rec = self.records[self.digest(img)]
+        sem = np.where(rec["sem_seg_gt"] == 255, 0, rec["sem_seg_gt"])
+        if not self.exact:
+            sem[:, :8 * (k + 1)] = (sem[:, :8 * (k + 1)] + 1) % len(rec["class_names"])
+        if "pan_seg_gt" not in rec:
+            return {"sem_seg": sem}
         r = np.random.RandomState(k)
         h, w = img.shape[:2]
         shift = lambda m: np.roll(m, k + 1, axis=1)
@@ -2546,8 +2634,6 @@ class GtPredictor:
         if k % 2:
             pan = np.where(pan == segs[0]["id"], 0, pan)
             segs = segs[1:]
-        sem = np.where(rec["sem_seg_gt"] == 255, 0, rec["sem_seg_gt"])
-        sem[:, :8 * (k + 1)] = (sem[:, :8 * (k + 1)] + 1) % len(rec["class_names"])
         return {"instances": {"boxes": np.array(boxes, np.float64), "masks": np.stack(masks),
                               "scores": r.uniform(0.05, 1.0, len(masks)),
                               "classes": np.array(classes)},
@@ -2846,6 +2932,302 @@ def phase_parallel_pair(dev, card, pipe_root: str, pipe_eval: dict):
             kd_shapes + [s for r in ranks for s in r["kd_shapes"]])
 
 
+LAST_TRAIN_STEPS = 3
+VITH_BF16_STEPS = 2
+VITH_BF16_MIN_DROP_GIB = 1.2
+JPEG_DIR = "tests/data/jpeg"
+JPEG_SIZE = (480, 640)
+JPEG_REPS = 20
+BOXINST = dict(n=100, hw=256, kernel_size=3, dilation=2, iteration=5000)
+DEMO_EXPRESSION = "the circle"
+
+
+def _train_record(rec) -> dict:
+    return {k: rec[k] for k in ("per_step", "ms_per_step", "peak_gib", "step_peaks_gib", "syncs",
+                                "unmoved", "trainable", "mu_dtypes")}
+
+
+def _jpeg_checks(card) -> dict:
+    """The committed JPEGs (tests/data/jpeg/) decoded on this machine against
+    cv2's decodes committed beside them (max |diff| <= 1, mean <= 0.01); then
+    decode and encode ms of one 640x480 JPEG written here (load_image and
+    write_jpeg, host clock, the median of JPEG_REPS)."""
+    import glob
+
+    from hipie_torch import native
+    from hipie_torch.data.image_io import load_image, read_png, write_jpeg
+    from hipie_torch.native import jpeg
+
+    here = Path(__file__).resolve().parent
+    files = sorted(glob.glob(str(here / JPEG_DIR / "*.jpg")))
+    if len(files) < 10:
+        raise AssertionError(f"jpeg: {len(files)} committed files under {JPEG_DIR}")
+    worst = {}
+    for path in files:
+        got, want = load_image(path), read_png(path[:-4] + ".png")
+        d = np.abs(got.astype(np.int32) - want.astype(np.int32)) if got.shape == want.shape else None
+        if d is None or d.max() > 1 or d.mean() > 0.01:
+            raise AssertionError(f"jpeg: {path} decodes to {got.shape} against cv2's "
+                                 f"{want.shape}" + ("" if d is None else
+                                                    f", max |diff| {d.max()}, mean {d.mean()}"))
+        worst[os.path.basename(path)] = (int(d.max()), float(d.mean()))
+    h, w = JPEG_SIZE
+    y, x = np.mgrid[0:h, 0:w]
+    r = np.random.RandomState(SEED)
+    img = np.stack([128 + 100 * np.sin(x / 23.0 + c) * np.cos(y / 17.0 - c) for c in range(3)], -1)
+    img = np.clip(img + r.randn(h, w, 3) * 6, 0, 255).astype(np.uint8)
+    work = tempfile.mkdtemp(prefix="hipie_jpeg_")
+    try:
+        path = os.path.join(work, "img.jpg")
+        enc, dec = [], []
+        for _ in range(JPEG_REPS):
+            t = time.perf_counter()
+            write_jpeg(path, img)
+            enc.append(1e3 * (time.perf_counter() - t))
+            t = time.perf_counter()
+            back = load_image(path)
+            dec.append(1e3 * (time.perf_counter() - t))
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    err = float(np.abs(back.astype(np.int32) - img).mean())
+    if back.shape != img.shape or err > 8.0:
+        raise AssertionError(f"jpeg: a 640x480 round trip gave {back.shape}, mean |diff| {err}")
+    rec = {"committed": worst, "decode_ms": float(np.median(dec)), "encode_ms": float(np.median(enc)),
+           "bytes": size, "round_trip_mean_abs": err, "lib": os.path.basename(native.library_path(jpeg._SRC))}
+    log(f"[14e] JPEG: {len(files)} committed files decode within one level of cv2's "
+        f"(max, mean |diff| {worst}); a 640x480 image ({size} bytes at quality 95): decode "
+        f"{rec['decode_ms']:.3f} ms, encode {rec['encode_ms']:.3f} ms (median of {JPEG_REPS}, "
+        f"host clock), round-trip mean |diff| {err:.3f}; card {card}")
+    return rec
+
+
+def _boxinst_check(dev, card) -> dict:
+    """boxinst_losses forward and backward at N = 100 slots of 256x256 mask
+    logits, a 3x3 neighbourhood at dilation 2, on the card in f32, against the
+    same call on the CPU (losses 1e-4 relative, the logits' gradient 1e-4 of
+    its largest value); ms by CUDA events (median of 5 after a warm-up)."""
+    from hipie_torch.losses.boxinst import boxinst_losses, images_color_similarity
+
+    n, hw, k, dil = BOXINST["n"], BOXINST["hw"], BOXINST["kernel_size"], BOXINST["dilation"]
+    g = torch.Generator().manual_seed(SEED)
+    logits = torch.randn(n, hw, hw, generator=g) * 3
+    boxes = torch.zeros(n, hw, hw)
+    corners = torch.randint(0, hw // 2, (n, 2), generator=g)
+    sizes = torch.randint(16, hw // 2, (n, 2), generator=g)
+    for i in range(n):
+        (y, x), (bh, bw) = corners[i].tolist(), sizes[i].tolist()
+        boxes[i, y:y + bh, x:x + bw] = 1
+    lab = torch.rand(hw, hw, 3, generator=g) * torch.tensor([100.0, 50.0, 50.0])
+    valid = torch.arange(n) < 80
+
+    def run(device):
+        ml = logits.to(device, copy=True).requires_grad_(True)
+        sim = images_color_similarity(lab.to(device), k, dil)[None].expand(n, -1, -1, -1)
+        out = boxinst_losses(ml, boxes.to(device), sim, valid.to(device), BOXINST["iteration"],
+                             kernel_size=k, dilation=dil)
+        (out["loss_prj"] + out["loss_pairwise"]).backward()
+        return {kk: float(v.detach()) for kk, v in out.items()}, ml.grad
+
+    want, want_grad = run("cpu")
+    got, grad = run(dev)
+    times = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        run(dev)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    rel = {kk: abs(got[kk] - want[kk]) / max(abs(want[kk]), 1e-30) for kk in want}
+    grad_err = float((grad.cpu() - want_grad).abs().max() / want_grad.abs().max())
+    if any(not np.isfinite(v) for v in got.values()) or max(rel.values()) > 1e-4 \
+            or grad_err > 1e-4:
+        raise AssertionError(f"boxinst: card {got} against CPU {want} (relative {rel}), "
+                             f"logit gradient error {grad_err}")
+    ms = float(np.median(times[1:]))
+    log(f"[14f] BoxInst at N={n}, {hw}x{hw}, K={k}, dilation {dil}: losses {got} (CPU "
+        f"{want}, relative {rel}), logit gradient within {grad_err:.2e} of the CPU's; forward "
+        f"and backward {ms:.3f} ms (CUDA events, median of 5); card {card}")
+    return {"losses": got, "ms": ms, "grad_rel_err": grad_err}
+
+
+def plain_path_bounds(card) -> dict:
+    """The bounds of two plain-PyTorch paths of PERF.md's table, from their
+    shapes, bf16 on the tensor cores, each with its qkv and output projections:
+    CLIP's attention layers in one open-vocab call (24 layers of width 1024
+    over 1 + 576 + 900 and 1 + 576 + 1200 tokens, the fg and all passes) and
+    Swin-L's windowed attention in one call of phase 11 (the 800x1216 bucket:
+    stage maps 200x304 to 25x38, padded to whole 12x12 windows). Operations:
+    8 T C^2 for the projections and 4 T n C for the two products (n tokens a
+    window, or T); bytes: the bf16 weights and the block's input and output."""
+    from hipie_torch.models.backbone.swin import SWIN_VARIANTS
+
+    flops = nbytes_ = 0.0
+    width = 1024
+    for t in (1 + 576 + 900, 1 + 576 + 1200):
+        flops += 24 * (8 * t * width ** 2 + 4 * t * t * width)
+        nbytes_ += 24 * (2 * 4 * width ** 2 + 2 * 2 * t * width)
+    out = {"clip_attention": bound(flops, nbytes_, PEAK_BF16_TENSOR, "tensor cores")}
+    embed, depths, _, ws = SWIN_VARIANTS["swin_large"]
+    flops = nbytes_ = 0.0
+    h, w = R50_BUCKET[0] // 4, R50_BUCKET[1] // 4
+    for s_, depth in enumerate(depths):
+        c = embed * 2 ** s_
+        tokens = -(-h // ws) * ws * -(-w // ws) * ws
+        flops += depth * (8 * tokens * c * c + 4 * tokens * ws * ws * c)
+        nbytes_ += depth * (2 * 4 * c * c + 2 * 2 * tokens * c)
+        h, w = -(-h // 2), -(-w // 2)
+    out["swin_attention"] = bound(flops, nbytes_, PEAK_BF16_TENSOR, "tensor cores")
+    log("[bounds] " + "; ".join(
+        f"{k} a call: {v['bound_ms']:.4f} ms by {v['bound_by']} ({v['bound_flops']:.4g} "
+        f"FLOP, {v['bound_bytes']:.4g} bytes)" for k, v in out.items()) + f"; card {card}")
+    return out
+
+
+def phase_last_modules(dev, card, pipe_root: str, vit_f32: dict):
+    """14: the modules of the port's last slice at full width on the card.
+    (a) LAST_TRAIN_STEPS training steps each of swin_large_coco_panoptic() and
+    convnext_large_coco_panoptic() through phase_train (R50's training cell's
+    shapes: batch 2 at 1024x1024, 256-token prompt, 100 GT slots, bf16
+    autocast; K-B and K-D exact a step); (b) VITH_BF16_STEPS ViT-H steps with
+    ``solver.mu_dtype`` bfloat16, the first moment stored in bf16 and the
+    peak of the steps after the first (the moments exist from the first update
+    on) at least VITH_BF16_MIN_DROP_GIB under phase 8's f32 steps'; (c)
+    make_tiny_coco --ade-semseg (its val split is phase 9's), eval_net on
+    ade20k_sem_seg_val with phase 9's checkpoint (mIoU finite) and with
+    GtPredictor answering the GT (mIoU 100); (d) the demo CLI on one of those
+    JPEGs with phase 9's config and checkpoint, detection and grounding, its
+    files read back; (e) ``_jpeg_checks``; (f) ``_boxinst_check``. Returns the
+    record and the K-A, K-B, K-D and K-E shapes of (a) and (b)."""
+    import hipie_torch.data.datasets as datasets
+    import hipie_torch.data.datasets_extra as datasets_extra
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.data.image_io import load_image, read_png
+    from hipie_torch.evaluation.evaluator import evaluate_semseg_dataset, load_sem_seg_gt
+    from hipie_torch.presets import (convnext_large_coco_panoptic, swin_large_coco_panoptic,
+                                     vit_huge_coco_panoptic)
+    from hipie_torch.tools import demo, eval_net, make_tiny_coco
+
+    out, shapes = {}, ([], [], [], [])
+    for preset in (swin_large_coco_panoptic, convnext_large_coco_panoptic):
+        gc.collect()          # earlier phases' models held by reference cycles
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        rec, *sh = phase_train(dev, card, cfg=preset(), steps=LAST_TRAIN_STEPS,
+                               require_moved=False)
+        for acc, got in zip(shapes, sh):
+            acc.extend(got)
+        out[preset.__name__] = {**_train_record(rec), "resident_gib": resident}
+        log(f"[14a] {preset.__name__}: ms per step {[round(t, 1) for t in rec['ms_per_step']]}, "
+            f"peak {rec['peak_gib']:.2f} GiB ({resident:.3f} resident before; by step "
+            f"{[round(x, 3) for x in rec['step_peaks_gib']]}), K-B "
+            f"{rec['per_step']['ms_deform_attn']} and K-D "
+            f"{rec['per_step']['ms_deform_attn_bwd']} launches a step, {rec['unmoved']} of "
+            f"{rec['trainable']} trainable tensors unmoved; card {card}")
+        torch.cuda.empty_cache()
+
+    # the f32 and bf16-moment steps back to back, each from the same resident
+    # memory (earlier phases' models freed first): the moments exist from the
+    # first update on, so the second step's peak is the one they weigh on
+    runs = {}
+    for mu in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated() / 2 ** 30
+        cfg = apply_overrides(vit_huge_coco_panoptic(), {"solver.mu_dtype": mu})
+        rec, *sh = phase_train(dev, card, cfg=cfg, steps=VITH_BF16_STEPS, ranges=True)
+        for acc, got in zip(shapes, sh):
+            acc.extend(got)
+        runs[mu] = {**_train_record(rec), "resident_gib": resident,
+                    "optimizer_ms": [r.get("optimizer") for r in rec["range_ms"]]}
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    drop = f32["step_peaks_gib"][1] - bf16["step_peaks_gib"][1]
+    out["vit_huge_bf16_mu"] = {**bf16, "f32": f32, "peak_drop_gib": drop,
+                               "phase8_step_peaks_gib": vit_f32["step_peaks_gib"]}
+    log(f"[14b] ViT-H, first moment f32 then bf16, {VITH_BF16_STEPS} steps each from "
+        f"{f32['resident_gib']:.3f} and {bf16['resident_gib']:.3f} GiB resident: ms per step "
+        f"{[round(t, 1) for t in f32['ms_per_step']]} and "
+        f"{[round(t, 1) for t in bf16['ms_per_step']]}; peak by step "
+        f"{[round(x, 3) for x in f32['step_peaks_gib']]} and "
+        f"{[round(x, 3) for x in bf16['step_peaks_gib']]} GiB (phase 8's f32 steps "
+        f"{[round(x, 3) for x in vit_f32['step_peaks_gib']]}): the second step's {drop:.3f} GiB "
+        f"less with bf16 (predicted 1.48); the optimizer range's device ms "
+        f"{f32['optimizer_ms']} and {bf16['optimizer_ms']}; moments {bf16['mu_dtypes']}; "
+        f"card {card}")
+    if bf16["mu_dtypes"] != ["torch.bfloat16"] or f32["mu_dtypes"] != ["torch.float32"] \
+            or drop < VITH_BF16_MIN_DROP_GIB:
+        raise AssertionError(f"ViT-H moments {f32['mu_dtypes']}, {bf16['mu_dtypes']}, peak drop "
+                             f"{drop:.2f} GiB "
+                             f"(at least {VITH_BF16_MIN_DROP_GIB} expected)")
+    torch.cuda.empty_cache()
+
+    config = str(Path(__file__).resolve().parent / SMOKE_CONFIG)
+    ckpt = os.path.join(pipe_root, "run", f"model_{PIPE_STEPS:07d}.pth")
+    ade_root = tempfile.mkdtemp(prefix="hipie_ade_")
+    old_root = os.environ.get("HIPIE_DATASETS")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            make_tiny_coco.main(["--root", ade_root, "--n-train", "1", "--n-val", "4",
+                                 "--size", str(PIPE_SIZE), "--ade-semseg"])
+        fixture_s = time.perf_counter() - t0
+        os.environ["HIPIE_DATASETS"] = ade_root
+        datasets_extra.register_benchmark_datasets()   # binds its root when called
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            model_eval = eval_net.main(["--config-file", config, "--dataset",
+                                        "ade20k_sem_seg_val", "--weights", ckpt,
+                                        "--device", str(dev)])
+        eval_s = time.perf_counter() - t0
+        records = [datasets.materialize_record(r)
+                   for r in datasets.get_dataset("ade20k_sem_seg_val")]
+        for r in records:
+            r["sem_seg_gt"] = load_sem_seg_gt(r["sem_seg_file_name"])
+        gt_results = evaluate_semseg_dataset(GtPredictor(records, exact=True), records,
+                                             datasets.DATASET_METADATA["ade20k_sem_seg_val"])
+        img_path = records[0]["file_name"]
+        demo_out = {}
+        for task, extra in (("detection", []), ("grounding", ["--expression", DEMO_EXPRESSION])):
+            src = os.path.join(ade_root, f"demo_{task}.jpg")
+            shutil.copy(img_path, src)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                res = demo.main(["--input", src, "--config-file", config, "--weights", ckpt,
+                                 "--device", str(dev), "--task", task, *extra])
+            secs = time.perf_counter() - t0
+            vis = load_image(res["written"]["vis"])
+            pan = read_png(res["written"]["pan"]) if "pan" in res["written"] else None
+            if vis.shape != load_image(src).shape or (pan is not None
+                                                      and pan.shape != vis.shape):
+                raise AssertionError(f"demo {task}: wrote {vis.shape}, "
+                                     f"{None if pan is None else pan.shape}")
+            demo_out[task] = {"s": secs, "instances": len(res["result"]["instances"]["scores"]),
+                              "files": sorted(os.path.basename(f)
+                                              for f in res["written"].values())}
+    finally:
+        if old_root is None:
+            os.environ.pop("HIPIE_DATASETS", None)
+        else:
+            os.environ["HIPIE_DATASETS"] = old_root
+        datasets_extra.register_benchmark_datasets()
+        shutil.rmtree(ade_root, ignore_errors=True)
+    if model_eval["images"] != 4 or not np.isfinite(model_eval["sem_seg/mIoU"]) \
+            or gt_results["sem_seg/mIoU"] != 100.0:
+        raise AssertionError(f"ADE mirror: eval_net {model_eval}, GtPredictor {gt_results}")
+    out["ade"] = {"model": model_eval, "gt": gt_results, "fixture_s": fixture_s,
+                  "eval_s": eval_s}
+    out["demo"] = demo_out
+    log(f"[14c] make_tiny_coco --ade-semseg ({fixture_s:.2f} s), eval_net ade20k_sem_seg_val "
+        f"with phase 9's checkpoint: { {k: round(float(v), 4) for k, v in model_eval.items()} } "
+        f"({eval_s:.1f} s); GtPredictor: mIoU {gt_results['sem_seg/mIoU']}; card {card}")
+    log(f"[14d] demo on a fixture JPEG: {demo_out}; card {card}")
+    out["jpeg"] = _jpeg_checks(card)
+    out["boxinst"] = _boxinst_check(dev, card)
+    out["bounds"] = plain_path_bounds(card)
+    return out, shapes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -2884,6 +3266,9 @@ def main() -> int:
     par_vith, par_ka, par_kb, par_kd, par_ke = phase_parallel_vith(dev, card)
     try:
         par_pair, pair_kb, pair_kd = phase_parallel_pair(dev, card, pipe_root, pipe["eval"])
+        torch.cuda.empty_cache()
+        last, (last_ka, last_kb, last_kd, last_ke) = phase_last_modules(
+            dev, card, pipe_root, vit_train)
     finally:
         shutil.rmtree(pipe_root, ignore_errors=True)
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
@@ -2896,12 +3281,13 @@ def main() -> int:
     if vit_got != vit_want:
         raise AssertionError(f"ViT-H train step launched {vit_got} of K-A and K-E, expected "
                              f"{vit_want}")
-    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka + par_ka)
+    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka + par_ka + last_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
                                      + vit_kb + pipe_kb + ov_kb + bb_kb + br_kb + par_kb
-                                     + pair_kb if s])
-    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd + par_kd + pair_kd)
-    check_coverage("K-E", vit_bwd_cases, vit_ke + par_ke)
+                                     + pair_kb + last_kb if s])
+    check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd + par_kd + pair_kd
+                   + last_kd)
+    check_coverage("K-E", vit_bwd_cases, vit_ke + par_ke + last_ke)
     # every K-E launch of the ViT-H step on the wgmma design
     from hipie_torch.ops.vit_attention import vit_attention_bwd_design
 
@@ -2961,6 +3347,10 @@ def main() -> int:
                 par_vith["runs"]["nccl"]["per_step"][-1]["launches"][r["name"]])
         if r["name"] in par_pair["per_step"]:
             r["launches_per_gloo_rank_step"] = par_pair["per_step"][r["name"]]
+    for name in ("swin_large_coco_panoptic", "convnext_large_coco_panoptic", "vit_huge_bf16_mu"):
+        for r in records:
+            if r["name"] in last[name]["per_step"]:
+                r[f"launches_per_{name}_train_step"] = last[name]["per_step"][r["name"]]
     kb["ms_per_request"] = msda_ms_per_request(msda_cases, kb_per_request)
     kb["ms_per_request_local"] = msda_ms_per_request(msda_cases, kb_per_request, local=True)
     log(f"[serve] K-B ms per ViT-H request from the shape times and the counted launches "

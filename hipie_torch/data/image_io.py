@@ -6,9 +6,14 @@ library's ``zlib``:
 
   * ``read_png`` / ``write_png``: 8-bit grey, RGB and RGBA PNG, non-interlaced,
     all five scanline filters on read (the writer uses filter 0, None);
-  * ``load_image``: an RGB uint8 image from a file. PNG is read here; any
-    other format (COCO's JPEGs) goes through PIL, imported at call time, and
-    without PIL the call raises naming the file and its format;
+  * ``load_image``: an RGB uint8 image from a file. PNG is read here and JPEG
+    (COCO's, RefCOCO's and ADE's images) by the port's own decoder
+    (hipie_torch/native/jpeg.cpp, built with g++ at first use: libjpeg-turbo's
+    arithmetic, so within one level of cv2.imread); any other format goes
+    through PIL, imported at call time, and without PIL the call raises naming
+    the file and its format;
+  * ``write_jpeg``: baseline JPEG, 4:2:0, quality 95 by default (cv2.imwrite's
+    defaults);
   * ``resize_bilinear``: cv2.INTER_LINEAR's geometry (half-pixel centres,
     edge clamping, no antialiasing) on a uint8 or float (H, W[, C]) array;
     a uint8 result is rounded, where cv2 uses 11-bit fixed-point weights, so
@@ -135,6 +140,16 @@ def write_png(path: str, img: np.ndarray) -> None:
                 + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
+def write_jpeg(path: str, img: np.ndarray, quality: int = 95) -> None:
+    """(H, W, 3) RGB or (H, W) grey uint8 -> a baseline JPEG file (4:2:0 for
+    colour, the Annex-K tables at ``quality``)."""
+    from hipie_torch.native.jpeg import encode_jpeg
+
+    data = encode_jpeg(img, quality)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def _format_of(head: bytes, path: str) -> str:
     if head[:8] == PNG_SIGNATURE:
         return "PNG"
@@ -146,10 +161,11 @@ def _format_of(head: bytes, path: str) -> str:
 
 
 def load_image(path: str, color: bool = True) -> np.ndarray:
-    """An image file -> (H, W, 3) uint8 RGB (grey repeated, alpha dropped, as
-    cv2.IMREAD_COLOR gives it after BGR -> RGB); ``color=False`` returns the
-    stored array (label maps: grey PNG, 16-bit TIFF). PNG is read here; other
-    formats need PIL, imported here at call time."""
+    """An image file -> (H, W, 3) uint8 RGB (grey repeated, alpha dropped, a
+    JPEG's EXIF orientation applied, as cv2.IMREAD_COLOR gives it after BGR ->
+    RGB); ``color=False`` returns the stored array (label maps: grey PNG,
+    16-bit TIFF). PNG and JPEG are read here; other formats need PIL, imported
+    here at call time."""
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     with open(path, "rb") as f:
@@ -157,6 +173,10 @@ def load_image(path: str, color: bool = True) -> np.ndarray:
     fmt = _format_of(data[:8], path)
     if fmt == "PNG":
         img = read_png(data)
+    elif fmt == "JPEG":
+        from hipie_torch.native.jpeg import decode_jpeg
+
+        img = decode_jpeg(data, path)
     else:
         try:
             from PIL import Image

@@ -4,7 +4,8 @@ The port's copy of hipie_tpu/native/__init__.py. evalcore.cpp (a copy of the
 JAX package's) is built with g++ at first use into
 ``hipie_torch/_build/native/``, under a name keyed by the host CPU's features
 and the source's hash (the library is compiled ``-march=native``, so one
-built on another host is never loaded). Without g++, or if the build fails,
+built on another host is never loaded); ``build_library`` builds jpeg.cpp the
+same way. Without g++, or if the build fails,
 ``available()`` is False and hipie_torch/evaluation uses its numpy versions,
 which give the same results; ``status()`` says which one runs.
 """
@@ -27,7 +28,7 @@ _lib: Optional[ctypes.CDLL] = None
 _build_error: Optional[str] = None
 
 
-def _fingerprint() -> str:
+def _fingerprint(src: str) -> str:
     """Host CPU flags + source hash."""
     parts = []
     try:
@@ -37,43 +38,52 @@ def _fingerprint() -> str:
         pass
     if not parts:
         parts.append(platform.processor())
-    with open(_SRC, "rb") as f:
+    with open(src, "rb") as f:
         parts.append(hashlib.sha1(f.read()).hexdigest())
     return hashlib.sha1("|".join(parts).encode()).hexdigest()[:10]
 
 
-def _lib_path() -> str:
-    return os.path.join(_BUILD_DIR, f"_evalcore-{_fingerprint()}.so")
+def library_path(src: str) -> str:
+    """Where ``src`` (a C++ file of this directory) is built for this host."""
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(_BUILD_DIR, f"_{stem}-{_fingerprint(src)}.so")
 
 
-def _build(path: str) -> None:
-    """Compile to a temporary name and rename, so that a concurrent reader
-    never loads a half-written library; remove builds for other hosts."""
-    global _build_error
+def build_library(src: str) -> str:
+    """Compile ``src`` with g++ into ``library_path(src)`` unless it is there;
+    returns the path, or raises RuntimeError with the compiler's message.
+    Compiles to a temporary name and renames, so that a concurrent reader
+    never loads a half-written library; removes builds for other hosts."""
+    path = library_path(src)
+    if os.path.exists(path):
+        return path
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     try:
-        subprocess.run(["g++", "-O3", "-march=native", "-shared", "-fPIC", "-o", tmp, _SRC],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, path)
+        subprocess.run(["g++", "-O3", "-march=native", "-std=c++17", "-shared", "-fPIC", "-o",
+                        tmp, src], check=True, capture_output=True, text=True, timeout=180)
     except (OSError, subprocess.SubprocessError) as e:
-        _build_error = f"{type(e).__name__}: {getattr(e, 'stderr', b'') or e}"
-        return
-    for old in glob.glob(os.path.join(_BUILD_DIR, "_evalcore*.so")):
+        raise RuntimeError(f"building {src} failed: {type(e).__name__}: "
+                           f"{getattr(e, 'stderr', '') or e}") from e
+    os.replace(tmp, path)
+    stem = os.path.splitext(os.path.basename(src))[0]
+    for old in glob.glob(os.path.join(_BUILD_DIR, f"_{stem}-*.so")):
         if old != path:
             try:
                 os.remove(old)
             except OSError:
                 pass
+    return path
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    global _lib
+    global _lib, _build_error
     if _lib is None and _build_error is None:
-        path = _lib_path()
-        if not os.path.exists(path):
-            _build(path)
-        if os.path.exists(path):
+        try:
+            path = build_library(_SRC)
+        except RuntimeError as e:
+            _build_error = str(e)
+        else:
             lib = ctypes.CDLL(path)
             lib.mask_iou.argtypes = [
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
@@ -94,7 +104,7 @@ def status() -> str:
     """"evalcore <library>" when the native library is loaded, else "numpy
     fallback (<why>)"."""
     if available():
-        return f"evalcore {os.path.relpath(_lib_path(), os.path.dirname(_BUILD_DIR))}"
+        return f"evalcore {os.path.relpath(library_path(_SRC), os.path.dirname(_BUILD_DIR))}"
     return f"numpy fallback ({_build_error or 'no library'})"
 
 

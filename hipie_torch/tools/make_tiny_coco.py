@@ -7,8 +7,9 @@ draws and ``--refcoco`` splits, so the whole data pipeline
 download. The shapes are drawn with numpy (``image_io.fill_polygon`` for the
 triangles) and the images are written as PNG (``file_name`` ends in .png), so
 its pixels differ from the JAX tool's (cv2 edges, JPEG) but not its structure.
-(The JAX tool's ``--ade-semseg`` mirror is not ported: the ADE registration
-pairs GT with .jpg images.)
+``--ade-semseg`` mirrors the val split into the ADE20k layout as the JAX tool
+does: the images as JPEG (``image_io.write_jpeg``, read back by the port's own
+decoder), the GT as grey PNG.
 
 Images are shape scenes: a stuff background split into 2 colour bands (sky /
 grass) plus 1-4 thing instances (circle / square / triangle) with
@@ -16,7 +17,7 @@ per-category base colours over pixel noise. Category names are common English
 words, so the toy WordPiece vocabulary tokenizes them.
 
     python -m hipie_torch.tools.make_tiny_coco --root DIR [--n-train 48]
-        [--n-val 16] [--size 512] [--refcoco]
+        [--n-val 16] [--size 512] [--refcoco] [--ade-semseg]
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import shutil
 
 import numpy as np
 
-from hipie_torch.data.image_io import fill_polygon, read_png, write_png
+from hipie_torch.data.image_io import fill_polygon, load_image, read_png, write_jpeg, write_png
 from hipie_torch.evaluation.rle import rle_encode
 
 THINGS = [
@@ -183,6 +184,37 @@ def emit_refcoco(root: str, split: str = "val2017", out_name: str = "refcoco-unc
     print(f"emitted tiny {out_name}: {len(out_anns)} expressions")
 
 
+def emit_ade_semseg(root: str) -> int:
+    """Mirror the val split into the ADE20k directory layout
+    (images/validation as JPEG, annotations_detectron2/validation as grey PNG)
+    so that the ``ade20k_sem_seg_val`` registration (data/datasets_extra.py)
+    runs end to end without the real dataset. GT ids are the fixture's
+    categories in load_coco_panoptic's contiguous 0-based order (sorted by
+    id); pixels outside every segment stay ``ignore`` (255). Returns the
+    number of images."""
+    with open(os.path.join(root, "coco/annotations/panoptic_val2017.json")) as f:
+        ann = json.load(f)
+    cats = sorted(ann["categories"], key=lambda c: c["id"])
+    id_map = {c["id"]: i for i, c in enumerate(cats)}
+    img_dir = os.path.join(root, "ade/ADEChallengeData2016/images/validation")
+    gt_dir = os.path.join(root, "ade/ADEChallengeData2016/annotations_detectron2/validation")
+    os.makedirs(img_dir, exist_ok=True)
+    os.makedirs(gt_dir, exist_ok=True)
+    for im, an in zip(ann["images"], ann["annotations"]):
+        stem = os.path.splitext(im["file_name"])[0]
+        img = load_image(os.path.join(root, "coco/val2017", im["file_name"]))
+        write_jpeg(os.path.join(img_dir, stem + ".jpg"), img)
+        png = read_png(os.path.join(root, "coco/panoptic_val2017", an["file_name"]))
+        png = png.astype(np.int64)
+        pan = png[:, :, 0] + 256 * png[:, :, 1] + 65536 * png[:, :, 2]
+        sem = np.full(pan.shape, 255, np.uint8)
+        for seg in an["segments_info"]:
+            sem[pan == seg["id"]] = id_map[seg["category_id"]]
+        write_png(os.path.join(gt_dir, stem + ".png"), sem)
+    print(f"emitted ADE-layout semseg val ({len(ann['images'])} images)")
+    return len(ann["images"])
+
+
 def dataset_bytes(root: str) -> int:
     """Bytes of every file under ``root``."""
     return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
@@ -196,12 +228,17 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=512)
     p.add_argument("--refcoco", action="store_true",
                    help="also emit a tiny refcoco-style grounding split")
+    p.add_argument("--ade-semseg", action="store_true",
+                   help="also mirror the val split into the ADE20k semseg layout "
+                        "(ade20k_sem_seg_val)")
     args = p.parse_args(argv)
     n = make_split(args.root, "train2017", args.n_train, args.size, seed=0)
     m = make_split(args.root, "val2017", args.n_val, args.size, seed=1)
     if args.refcoco:
         emit_refcoco(args.root)
         emit_refcoco(args.root, split="train2017", out_name="refcoco-mixed")
+    if args.ade_semseg:
+        emit_ade_semseg(args.root)
     print(f"wrote {n} train + {m} val images under {args.root} "
           f"(set HIPIE_DATASETS={args.root})")
 

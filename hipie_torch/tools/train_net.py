@@ -22,7 +22,8 @@ ranks' rendezvous (default: a free localhost port). Each rank takes
 rule), from its shard of the loader; the step is the global batch's
 (hipie_torch/train/step.py). More ranks than cards raise. ``--tp`` (JAX's
 tensor-parallel sharding) raises above 1: the port is data-parallel only.
-``--tensorboard`` raises (not ported).
+``--tensorboard`` mirrors the scalars to TensorBoard under ``<output_dir>/tb``
+where torch.utils.tensorboard imports, and says so in one line where it does not.
 """
 
 from __future__ import annotations
@@ -43,7 +44,8 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--log-period", type=int, default=20)
     p.add_argument("--no-eval", action="store_true",
                    help="disable eval-during-training (EvalHook)")
-    p.add_argument("--tensorboard", action="store_true", help="not ported: raises")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="mirror scalars to TensorBoard (<output_dir>/tb)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     add_launch_args(p)
     p.add_argument("opts", nargs="*", default=[])
@@ -81,8 +83,6 @@ def build_trainer(argv: Optional[Sequence[str]] = None, device=None):
     the process group if one is initialised; returns (trainer, parsed
     arguments)."""
     args = parse_args(argv)
-    if args.tensorboard:
-        raise NotImplementedError("--tensorboard is not ported")
     if args.eval_only:
         raise SystemExit("use hipie_torch.tools.eval_net for evaluation")
     from hipie_torch.data.loader import TrainLoader
@@ -111,6 +111,11 @@ def build_trainer(argv: Optional[Sequence[str]] = None, device=None):
                if cfg.test.eval_period > 0 and not args.no_eval else None)
     trainer = Trainer(cfg, state, steps, loader, eval_fn=eval_fn, log_period=args.log_period,
                       device=dev)
+    if args.tensorboard:
+        trainer.storage.enable_tensorboard()
+        if trainer.storage._tb is None:     # JAX's storage turns it off silently
+            print("[train_net] --tensorboard: torch.utils.tensorboard does not import; "
+                  "training without it")
     return trainer, args
 
 

@@ -22,14 +22,16 @@ group's learning rate at the step; ``torch.optim.AdamW`` computes the same
 update. The gradients are first clipped to a global L2 norm of ``clip_norm``
 over all trainable parameters (optax.clip_by_global_norm), and with
 ``grad_accum`` k > 1 their mean over k micro-steps is applied every k-th step
-(optax.MultiSteps). ``mu_dtype="bfloat16"`` (a first moment in bf16, a memory
-knob of the JAX package for 16 GB chips) is not ported and raises.
+(optax.MultiSteps). ``mu_dtype="bfloat16"`` keeps the first moment in bf16
+(a memory knob of the JAX package for 16 GB chips: half a float a parameter),
+step for step as optax's ``scale_by_adam(mu_dtype=bfloat16)`` does it
+(``AdamWLowMu``); other dtypes raise.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -110,6 +112,96 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     return norm
 
 
+def _chunks(params: List[torch.Tensor], limit: int = 1 << 26) -> Iterator[List[int]]:
+    """Indices of ``params`` in runs of at least ``limit`` elements (the last
+    shorter), so that an update's f32 temporaries stay a fraction of the model."""
+    run, n = [], 0
+    for i, p in enumerate(params):
+        run.append(i)
+        n += p.numel()
+        if n >= limit:
+            yield run
+            run, n = [], 0
+    if run:
+        yield run
+
+
+class AdamWLowMu(torch.optim.Optimizer):
+    """AdamW with the first moment stored in a narrower float (bf16), the
+    arithmetic of optax's chain scale_by_adam(mu_dtype=...) ->
+    add_decayed_weights -> scale_by_learning_rate -> apply_updates:
+
+      mu = (1 - b1) * g + b1 * mu    b1 * mu in mu's dtype (b1 rounded to it,
+                                     as a Python float meets a bf16 array in
+                                     JAX), the sum in f32
+      nu = (1 - b2) * g * g + b2 * nu                      (f32)
+      u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd * p
+      p = p + (-lr) * u;  mu is rounded to its dtype (nearest even) for storage.
+
+    ``torch.optim.AdamW`` with a bf16 ``exp_avg`` would instead do its lerp in
+    bf16 and bias-correct the rounded moment."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+        self.mu_dtype = mu_dtype
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = torch.tensor(0.0)
+                    st["exp_avg"] = torch.zeros_like(p, dtype=self.mu_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+            # a group's parameters step together; optax counts in int32 and
+            # takes b^t and 1 - b^t in f32
+            t = torch.tensor(float(self.state[params[0]]["step"]), dtype=torch.float32)
+            bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
+            bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
+            b1_low = float(torch.tensor(b1, dtype=self.mu_dtype))
+            for run in _chunks(params):
+                ps = [params[i] for i in run]
+                grads = [p.grad for p in ps]
+                mus = [self.state[p]["exp_avg"] for p in ps]
+                nus = [self.state[p]["exp_avg_sq"] for p in ps]
+                mu = torch._foreach_mul(grads, 1 - b1)
+                torch._foreach_add_(mu, [m.float() for m in torch._foreach_mul(mus, b1_low)])
+                g2 = torch._foreach_mul(grads, grads)
+                torch._foreach_mul_(g2, 1 - b2)
+                torch._foreach_mul_(nus, b2)
+                torch._foreach_add_(nus, g2)
+                del g2
+                denom = torch._foreach_div(nus, bc2)
+                torch._foreach_sqrt_(denom)
+                torch._foreach_add_(denom, group["eps"])
+                upd = torch._foreach_div(mu, bc1)
+                torch._foreach_div_(upd, denom)
+                del denom
+                if group["weight_decay"]:
+                    torch._foreach_add_(upd, torch._foreach_mul(ps, group["weight_decay"]))
+                torch._foreach_mul_(upd, -group["lr"])
+                torch._foreach_add_(ps, upd)
+                torch._foreach_copy_(mus, mu)
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch casts every float state to its parameter's dtype on load: put
+        the first moment back in its own (exact, it was stored in it)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            if "exp_avg" in st:
+                st["exp_avg"] = st["exp_avg"].to(self.mu_dtype)
+
+
+MU_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 class GroupedAdamW:
     """The optimizer of the training step over a model's trainable parameters.
 
@@ -119,8 +211,10 @@ class GroupedAdamW:
     mean and updates only every k-th call."""
 
     def __init__(self, cfg: SolverConfig, model: torch.nn.Module):
-        if getattr(cfg, "mu_dtype", "float32") != "float32":
-            raise NotImplementedError(f"mu_dtype={cfg.mu_dtype!r} is not ported (f32 moments only)")
+        mu_dtype = getattr(cfg, "mu_dtype", "float32")
+        if mu_dtype not in MU_DTYPES:
+            raise NotImplementedError(f"mu_dtype={mu_dtype!r}: the port takes "
+                                      f"{' or '.join(MU_DTYPES)}")
         self.cfg = cfg
         self.labels = freeze_(model)
         self.base_lrs = group_base_lrs(cfg)
@@ -130,10 +224,11 @@ class GroupedAdamW:
             if p.requires_grad:
                 named[self.labels[name]].append(p)
         self.params = [p for g in self.base_lrs for p in named[g]]
-        self.opt = torch.optim.AdamW(
-            [{"params": named[g], "lr": self.schedules[g](0), "group": g}
-             for g in self.base_lrs if named[g]],
-            betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+        groups = [{"params": named[g], "lr": self.schedules[g](0), "group": g}
+                  for g in self.base_lrs if named[g]]
+        kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+        self.opt = (torch.optim.AdamW(groups, **kw) if mu_dtype == "float32" else
+                    AdamWLowMu(groups, lr=0.0, mu_dtype=MU_DTYPES[mu_dtype], **kw))
         self.updates = 0          # optimizer updates made (the schedule's count)
         self._micro = 0
         self._acc: Optional[List[torch.Tensor]] = None

@@ -14,6 +14,7 @@ tests/test_torch_slice.py holds it (1e-4, slots aligned after the two-stage
 top-k; 1e-3 on CondInst mask logits).
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

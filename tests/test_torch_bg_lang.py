@@ -22,6 +22,7 @@ of the largest (round-off alone: a bias under a GroupNorm of one channel a
 group, BERT's key bias under the softmax), within 1e-5 of the largest.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

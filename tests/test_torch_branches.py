@@ -23,6 +23,7 @@ in f32 at tiny_test_config (a ResNet-18):
     the stop-gradient reaches but the frozen group does not.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

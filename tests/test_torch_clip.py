@@ -11,6 +11,7 @@ the same resize, so it must agree exactly; the fusions are a few elementwise
 f32 ops (1e-6).
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -14,6 +14,7 @@ values up to 255). A polygon fill differs from cv2.fillPoly only on pixels
 within one pixel of the outline, and its IoU with cv2's is at least 0.98.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import dataclasses
 import glob
 import os
@@ -153,13 +154,14 @@ def test_decode_segmentation_rle_is_exact():
 
 
 def test_load_image_other_formats_go_through_pil(tmp_path, monkeypatch):
-    """A JPEG is read by PIL (imported at call time); without PIL the error
-    names the file and its format."""
+    """A format other than PNG and JPEG (here BMP) is read by PIL (imported at
+    call time); without PIL the error names the file and its format. (JPEG
+    has the port's own decoder: tests/test_torch_jpeg.py.)"""
     import builtins
 
     from PIL import Image
 
-    path = str(tmp_path / "a.jpg")
+    path = str(tmp_path / "a.bmp")
     Image.fromarray(np.random.RandomState(0).randint(0, 256, (20, 30, 3)).astype(
         np.uint8)).save(path)
     np.testing.assert_array_equal(image_io.load_image(path),
@@ -172,8 +174,51 @@ def test_load_image_other_formats_go_through_pil(tmp_path, monkeypatch):
         return real_import(name, *a, **k)
 
     monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(RuntimeError, match=r"a\.jpg: JPEG images need PIL"):
+    with pytest.raises(RuntimeError, match=r"a\.bmp: BMP images need PIL"):
         image_io.load_image(path)
+
+
+def test_ade_mirror_equals_jax(tmp_path):
+    """JAX's fixture tool (tools/make_tiny_coco.py: a val split, then
+    emit_ade_semseg), and the port's emit_ade_semseg over a copy of the same
+    split: the GT maps equal, the mirrored JPEGs decode within one level of
+    each other (each tool's own reader), and the port's load_sem_seg records
+    over its mirror equal JAX's over JAX's (paths relative to each root)."""
+    import importlib.util
+    import shutil
+
+    from hipie_tpu.data.datasets_extra import load_sem_seg as jload
+    from hipie_torch.data.datasets_extra import load_sem_seg as tload
+    from hipie_torch.tools.make_tiny_coco import emit_ade_semseg
+
+    spec = importlib.util.spec_from_file_location("jax_make_tiny_coco",
+                                                  REPO / "tools" / "make_tiny_coco.py")
+    jtool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jtool)
+    jroot, troot = tmp_path / "jax", tmp_path / "port"
+    jtool.make_split(str(jroot), "val2017", 3, 96, seed=1)
+    shutil.copytree(jroot / "coco", troot / "coco")
+    jtool.emit_ade_semseg(str(jroot))
+    assert emit_ade_semseg(str(troot)) == 3
+    sub = "ade/ADEChallengeData2016/{}/validation"
+    recs = []
+    for root, load in ((jroot, jload), (troot, tload)):
+        rs = load(str(root / sub.format("images")), str(root / sub.format("annotations_detectron2")),
+                  "ade20k_150")
+        for r in rs:
+            for k in ("file_name", "sem_seg_file_name"):
+                r[k] = os.path.relpath(r[k], root)
+        recs.append(rs)
+    assert len(recs[0]) == 3
+    _assert_equal(recs[1], recs[0])
+    for r in recs[0]:
+        gt_j = cv2.imread(str(jroot / r["sem_seg_file_name"]), cv2.IMREAD_UNCHANGED)
+        gt_t = image_io.load_image(str(troot / r["sem_seg_file_name"]), color=False)
+        np.testing.assert_array_equal(gt_t, gt_j)
+        assert len(np.unique(gt_j)) >= 2
+        img_j = cv2.imread(str(jroot / r["file_name"]), cv2.IMREAD_COLOR)[..., ::-1]
+        img_t = image_io.load_image(str(troot / r["file_name"]))
+        assert np.abs(img_t.astype(int) - img_j).max() <= 1
 
 
 # -- YAML ----------------------------------------------------------------------

@@ -17,6 +17,7 @@ a numpy seed, exported and loaded with strict=True) through its own evaluator
 gives metrics within 1e-6.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 

@@ -14,6 +14,7 @@ module under ``HIPIE_MSDA_METHOD=flat4``. Inputs come from numpy seeds and go
 to both sides.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax.numpy as jnp

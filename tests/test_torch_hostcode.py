@@ -7,8 +7,10 @@ hipie_tpu. Each check here runs a copy and its original on the same inputs and
 asks for equality: exact, since both are the same host code over numpy.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import dataclasses
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ import hipie_tpu.config as jconfig
 import hipie_tpu.presets as jpresets
 import hipie_torch.config as tconfig
 import hipie_torch.presets as tpresets
+
+REPO = Path(__file__).resolve().parent.parent
 
 # The override dicts the port's tests and chip_smoke.py build configs with.
 OVERRIDES = {
@@ -309,3 +313,48 @@ def test_sam_vote_labels_is_the_same():
         assert tsam.vote_labels(masks, sem, 5, frac) == jsam.vote_labels(masks, sem, 5, frac)
     assert tsam.build_sam() is None and jsam.build_sam() is None       # no segment_anything
     assert tsam.refine_masks_with_sam(None, sem, np.zeros((1, 4)), (24, 32)) is None
+
+
+def test_convert_refcoco_writes_the_same_json(tmp_path):
+    """tools/convert_refcoco.py (run as its own script) and the port's copy
+    (hipie_torch/tools/convert_refcoco.py) on tiny refer pickles made here
+    (three datasets, train/val/test splits, a ref whose annotation is missing,
+    an image shared between datasets): every json they write is identical."""
+    import json
+    import pickle
+    import subprocess
+    import sys
+
+    from hipie_torch.tools import convert_refcoco
+
+    r = np.random.RandomState(0)
+    images = [{"id": i, "file_name": f"COCO_train2014_{i:012d}.jpg", "height": 64 + i,
+               "width": 80} for i in range(1, 7)]
+    anns = [{"id": 100 + k, "image_id": 1 + k % 6, "category_id": 1 + k % 3,
+             "bbox": [float(k), 2.0, 10.0, 12.0], "area": 120.0, "iscrowd": 0,
+             "segmentation": [[1.0, 2.0, 11.0, 2.0, 11.0, 14.0]]} for k in range(12)]
+    coco = {"images": images, "annotations": anns,
+            "categories": [{"id": c, "name": f"cat{c}"} for c in (1, 2, 3)]}
+    coco_path = tmp_path / "instances_train2014.json"
+    coco_path.write_text(json.dumps(coco))
+    refer = tmp_path / "refer"
+    for d, by in (("refcoco", "unc"), ("refcoco+", "unc"), ("refcocog", "umd")):
+        refs = []
+        for k in range(9):
+            ann_id = 100 + int(r.randint(0, 13))          # 112 has no annotation
+            refs.append({"ref_id": k, "ann_id": ann_id, "image_id": 1 + (ann_id - 100) % 6,
+                         "split": ("train", "val", "test")[k % 3],
+                         "sentences": [{"sent": f"{d} thing {k} {j}"} for j in range(1 + k % 2)]})
+        (refer / d).mkdir(parents=True)
+        with open(refer / d / f"refs({by}).p", "wb") as f:
+            pickle.dump(refs, f)
+    args = ["--refer-root", str(refer), "--coco-instances", str(coco_path)]
+    jout, tout = tmp_path / "jax", tmp_path / "port"
+    subprocess.run([sys.executable, str(REPO / "tools" / "convert_refcoco.py"), *args, "--out",
+                    str(jout)], check=True, capture_output=True, cwd=REPO)
+    convert_refcoco.main([*args, "--out", str(tout)])
+    names = sorted(os.listdir(jout))
+    assert "refcoco-mixed_instances.json" in names and len(names) == 10
+    assert sorted(os.listdir(tout)) == names
+    for n in names:
+        assert (tout / n).read_bytes() == (jout / n).read_bytes(), n

@@ -11,6 +11,7 @@ The wrappers take the plain version for CPU tensors; that is checked too.
 Inputs come from numpy seeds and go to both sides.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ unless a test says otherwise; tolerances are f32 round-off over the depth of
 the module.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

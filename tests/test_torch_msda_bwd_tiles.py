@@ -37,6 +37,7 @@ within a warp's step the 32 lanes touch 32 distinct words on 32 distinct
 banks; and the multiply-shift divisions are exact.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

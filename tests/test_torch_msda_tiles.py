@@ -20,6 +20,7 @@ corner rows, a tile's locations are one contiguous stretch read in order, and
 the table's writes and reads are free of bank conflicts.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -3,13 +3,15 @@ imports neither anywhere, serves and trains on the card by default, and
 chip_smoke.py refuses to run without a card. It also runs without the host
 libraries the card's machine lacks (cv2, PIL, PyYAML, torchvision): none is
 imported anywhere in the port or chip_smoke.py, but for PIL inside
-``hipie_torch/data/image_io.py::load_image``, for images other than PNG.
+``hipie_torch/data/image_io.py::load_image``, for images other than PNG and
+JPEG (JPEG has the port's own decoder).
 
 The runs are in fresh interpreters, so nothing this test process imported
 leaks in; there ``sys.modules["hipie_tpu"] = None`` makes any import of the JAX
 package fail.
 """
 
+from torch_threads import subprocess_env  # first: sizes torch's CPU threads
 import ast
 import os
 import subprocess
@@ -22,7 +24,7 @@ REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("hipie_tpu", "jax", "flax")
 HOST_LIBS = ("cv2", "PIL", "yaml", "torchvision")
 # the one import of a host library the port makes, at call time, for images
-# other than PNG: (file, function, module)
+# other than PNG and JPEG: (file, function, module)
 HOST_LIB_ALLOWED = {("hipie_torch/data/image_io.py", "load_image", "PIL")}
 
 BLOCK_JAX_PACKAGE = r"""
@@ -89,7 +91,7 @@ assert not [m for m in sys.modules if m.startswith(("jax", "flax", "cv2"))
 print("NOJAX_OK")
 """
 
-# Two training steps on the tiny config through the port's own step, optimizer,
+# A training step on the tiny config through the port's own step, optimizer,
 # criterion, matchers, CDN and Trainer, on the CPU, with the data-parallel
 # modules (hipie_torch/parallel/) imported.
 TRAIN = BLOCK_JAX_PACKAGE + r"""
@@ -116,10 +118,10 @@ t = Targets(torch.tensor([[3, 7, 0, 0]]), torch.tensor([[[0.47, 0.34, 0.56, 0.44
 batch = TrainBatch(torch.randint(0, 256, (b, 96, 96, 3)), torch.zeros(b, 96, 96, dtype=torch.bool),
                    torch.arange(L)[None] % 16, torch.ones(b, L, dtype=torch.long),
                    torch.tensor([[96, 96]]), t)
-trainer = Trainer(cfg, state, make_train_step(cfg, state, device="cpu"), iter([batch] * 2),
+trainer = Trainer(cfg, state, make_train_step(cfg, state, device="cpu"), iter([batch]),
                   device="cpu")
-state = trainer.train(max_iter=2)
-assert state.step == 2 and all(np.isfinite(h["total_loss"]) for h in trainer.history)
+state = trainer.train(max_iter=1)
+assert state.step == 1 and all(np.isfinite(h["total_loss"]) for h in trainer.history)
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
             or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
 print("NOJAX_OK")
@@ -150,60 +152,6 @@ state, metrics = step(state, batch, GeneratorKeys(torch.Generator().manual_seed(
 assert state.step == 1 and torch.isfinite(metrics["total_loss"])
 assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
             or (m.startswith("hipie_tpu") and sys.modules[m] is not None)]
-print("NOJAX_OK")
-"""
-
-
-# The fixture, then train_net for a step with an inline evaluation and
-# eval_net on a referring split, on the CPU, with the JAX package and the host
-# libraries the card's machine lacks all blocked.
-TRAIN_NET = BLOCK_JAX_PACKAGE + r"""
-for name in ("cv2", "PIL", "yaml", "torchvision"):
-    sys.modules[name] = None
-import dataclasses, os, tempfile
-from hipie_torch.config import HIPIEConfig, apply_overrides, tiny_test_config
-from hipie_torch.tools import eval_net, make_tiny_coco, train_net
-
-work = tempfile.mkdtemp()
-root = os.path.join(work, "data")
-make_tiny_coco.main(["--root", root, "--n-train", "6", "--n-val", "4", "--size", "128",
-                     "--refcoco"])
-os.environ["HIPIE_DATASETS"] = root
-cfg = apply_overrides(tiny_test_config(), {
-    "model.backbone.resnet_depth": 18, "model.max_matched_masks": 8, "data.crop_size": 128,
-    "data.max_text_len": 16, "data.min_size_test": 96, "data.max_size_test": 128,
-    "data.test_dataset": "coco_panoptic_val", "test.test_size": [128, 128],
-    "data.train_datasets": ["coco_panoptic_train", "refcoco-mixed"],
-    "data.dataset_ratios": [1.0, 1.0], "solver.ims_per_batch": 1, "solver.max_iter": 1,
-    "solver.checkpoint_period": 1, "test.eval_period": 1, "test.eval_max_images": 1})
-
-def diff(a, b):
-    return {k: (diff(v, b[k]) if isinstance(v, dict) else v) for k, v in a.items()
-            if v != b[k]}
-
-def lines(d, ind=0):
-    for k, v in d.items():
-        if isinstance(v, dict):
-            yield " " * ind + f"{k}:"
-            yield from lines(v, ind + 2)
-        elif isinstance(v, (list, tuple)):
-            yield " " * ind + f"{k}: [{', '.join(str(x) for x in v)}]"
-        else:
-            yield " " * ind + f"{k}: {v}"
-
-cfg_file = os.path.join(work, "tiny.yaml")
-with open(cfg_file, "w") as f:
-    f.write("\n".join(lines(diff(dataclasses.asdict(cfg), dataclasses.asdict(HIPIEConfig())))))
-run = os.path.join(work, "run")
-trainer = train_net.main(["--config-file", cfg_file, "--device", "cpu", "output_dir", run])
-assert trainer.state.step == 1 and "panoptic/PQ" in trainer.history[-1]["eval"]
-res = eval_net.main(["--config-file", cfg_file, "--device", "cpu", "--dataset",
-                     "refcoco-unc-val", "--max-images", "1", "--weights",
-                     os.path.join(run, "model_0000001.pth")])
-assert res["images"] == 1
-assert not [m for m in sys.modules if m.startswith(("jax", "flax", "optax"))
-            or (m.split(".")[0] in ("hipie_tpu", "cv2", "PIL", "yaml", "torchvision")
-                and sys.modules[m] is not None)]
 print("NOJAX_OK")
 """
 
@@ -251,7 +199,7 @@ print("NOJAX_OK")
 
 
 def _env():
-    env = dict(os.environ)
+    env = subprocess_env(dict(os.environ))
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     return env
 
@@ -283,8 +231,17 @@ def test_open_vocab_and_new_backbones_run_without_jax():
     _run_without_jax(OPEN_VOCAB)
 
 
-def test_train_net_and_eval_net_run_without_jax_or_host_libraries():
-    _run_without_jax(TRAIN_NET)
+def test_train_net_and_eval_net_run_without_jax_or_host_libraries(tmp_path_factory):
+    """The fixture, train_net (two steps with an inline evaluation) and eval_net
+    on a panoptic and a referring split, with the JAX package and the host
+    libraries the card's machine lacks all blocked: the run
+    test_torch_train_driver.py reads too (tests/torch_tools_run.py)."""
+    from torch_tools_run import tools_run
+
+    run = tools_run(tmp_path_factory)
+    assert run["step"] == 2 and "panoptic/PQ" in run["last_eval"]
+    assert run["refcoco"]["images"] == 1 and run["panoptic"]["images"] == 2
+    assert not run["leaked"], run["leaked"]
 
 
 def _port_sources():
@@ -332,6 +289,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
     assert {REPO / "hipie_torch" / "parallel" / f"{m}.py"
             for m in ("mesh", "multihost", "dryrun")} <= set(sources)
+    assert {REPO / "hipie_torch" / "tools" / f"{m}.py"
+            for m in ("demo", "convert_refcoco")} <= set(sources)
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}
     assert not bad, bad
 
@@ -339,7 +298,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 def test_port_imports_no_host_library_the_card_lacks():
     """No import of cv2, PIL, yaml or torchvision anywhere in the port or
     chip_smoke.py, at module level or inside a function, but for the one the
-    port needs: PIL inside image_io.load_image, for images other than PNG."""
+    port needs: PIL inside image_io.load_image, for images other than PNG and JPEG."""
     sources = _port_sources()
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _host_lib_imports(p))}
     assert not bad, bad
@@ -358,19 +317,21 @@ def test_the_host_library_check_sees_function_level_imports(tmp_path):
         (1, "yaml", None), (4, "cv2", "load_image")]
 
 
-@pytest.mark.parametrize("tool", ["train_net", "eval_net"])
+@pytest.mark.parametrize("tool", ["train_net", "eval_net", "demo"])
 def test_entry_points_default_to_the_card(tool):
-    """train_net and eval_net run on the card unless --device cpu is given;
-    without a card they raise before any work."""
+    """train_net, eval_net and demo run on the card unless --device cpu is
+    given; without a card they raise before any work."""
     import torch
 
-    from hipie_torch.tools import eval_net, train_net
+    from hipie_torch.tools import demo, eval_net, train_net
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; this checks the no-card refusal")
-    main = train_net.main if tool == "train_net" else eval_net.main
+    main = {"train_net": train_net.main, "eval_net": eval_net.main, "demo": demo.main}[tool]
+    extra = ["--input", str(REPO / "tests" / "data" / "jpeg" / "baseline_420.jpg")] \
+        if tool == "demo" else []
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        main(["--config-file", str(REPO / "configs" / "smoke_tiny_coco.yaml")])
+        main(["--config-file", str(REPO / "configs" / "smoke_tiny_coco.yaml"), *extra])
 
 
 def test_the_import_check_sees_nested_and_aliased_imports(tmp_path):

@@ -17,6 +17,7 @@ semantic maps, 1e-3 of the largest magnitude on CondInst mask logits; 1e-5 in
 relative norm on BERT states.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -49,6 +49,7 @@ sharded metrics equal to one process's. Each reverted fix must break its
 check.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import copy
 import os
 import time

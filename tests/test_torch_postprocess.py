@@ -5,6 +5,7 @@ Integer and boolean outputs must be equal; float outputs agree to f32
 round-off (1e-6).
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax.numpy as jnp

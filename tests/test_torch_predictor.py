@@ -19,6 +19,7 @@ the port's f32 mask logits and JAX's sit 6e-3 and 8e-3 from the float64
 result, and 1.4e-2 from each other.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

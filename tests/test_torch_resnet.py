@@ -11,6 +11,7 @@ the tolerance is f32 round-off through 50 layers, 1e-4 of each output's
 largest magnitude.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -13,6 +13,7 @@ values of scale ~1-10; 1e-3 on CondInst mask logits of scale ~50, which
 amplify controller round-off through un-normalised coordinates).
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -5,6 +5,7 @@ into the port."""
 
 from __future__ import annotations
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import torch
 

@@ -9,6 +9,7 @@ same keys. A JAX parameter tree exported with ``export_hipie_checkpoint`` and
 saved as a .pth loads through ``--weights`` under the same names.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import dataclasses
 import os
 
@@ -209,37 +210,47 @@ def _tiny_yaml(path, **extra):
     return str(path)
 
 
-def test_train_net_and_eval_net_on_the_cpu(tmp_path, monkeypatch, capsys):
-    import hipie_torch.data.datasets as tds
-    from hipie_torch.tools import eval_net, make_tiny_coco, train_net
+def test_train_net_and_eval_net_on_the_cpu(tmp_path_factory):
+    """train_net for two steps of detection and grounding (a checkpoint and an
+    inline evaluation at step 2, --tensorboard on), then eval_net of that
+    checkpoint, from the run that test_torch_nojax.py reads too
+    (tests/torch_tools_run.py)."""
+    from torch_tools_run import tools_run
 
-    root = str(tmp_path / "data")
-    make_tiny_coco.main(["--root", root, "--n-train", "6", "--n-val", "4", "--size", "128",
-                         "--refcoco"])
-    monkeypatch.setenv("HIPIE_DATASETS", root)
-    tds._register_builtin()
-    try:
-        cfg_file = _tiny_yaml(tmp_path / "tiny.yaml", **{
-            "data.train_datasets": ["coco_panoptic_train", "refcoco-mixed"],
-            "data.dataset_ratios": [1.0, 1.0], "solver.max_iter": 2,
-            "solver.checkpoint_period": 2, "test.eval_period": 2, "test.eval_max_images": 1})
-        run = str(tmp_path / "run")
-        trainer = train_net.main(["--config-file", cfg_file, "--device", "cpu",
-                                  "output_dir", run])
-        assert trainer.state.step == 2 and set(trainer.train_step) == {"detection", "grounding"}
-        assert all(np.isfinite(h["total_loss"]) for h in trainer.history)
-        assert "panoptic/PQ" in trainer.history[-1]["eval"]
-        assert latest_checkpoint(run).endswith("model_0000002.pth")
-        results = eval_net.main(["--config-file", cfg_file, "--device", "cpu", "--weights",
-                                 os.path.join(run, "model_0000002.pth"), "--dataset",
-                                 "coco_panoptic_val", "--max-images", "2"])
-        assert results["images"] == 2 and np.isfinite(results["panoptic/PQ"])
-        assert '"panoptic/PQ"' in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match="tensorboard"):
-            train_net.main(["--config-file", cfg_file, "--device", "cpu", "--tensorboard"])
-    finally:
-        monkeypatch.undo()
-        tds._register_builtin()
+    run = tools_run(tmp_path_factory)
+    assert run["step"] == 2 and run["tasks"] == ["detection", "grounding"]
+    assert all(np.isfinite(h["total_loss"]) for h in run["history"])
+    assert "panoptic/PQ" in run["last_eval"]
+    assert run["checkpoint"] == "model_0000002.pth"
+    assert run["panoptic"]["images"] == 2 and np.isfinite(run["panoptic"]["panoptic/PQ"])
+    assert '"panoptic/PQ"' in run["stdout"]
+    # --tensorboard: scalars mirrored where torch.utils.tensorboard imports,
+    # one line saying so where it does not
+    if run["tensorboard"]:
+        assert any(f.startswith("events.out.tfevents") for f in run["tb_files"])
+    else:
+        assert "torch.utils.tensorboard does not import" in run["stdout"]
+
+
+def test_tensorboard_off_says_so_and_carries_on(tmp_path, monkeypatch, capsys):
+    """Where torch.utils.tensorboard does not import, train_net --tensorboard
+    says so in one line and builds the trainer without it (the storage, JAX's
+    copy, turns it off silently)."""
+    import sys
+
+    from hipie_torch.tools import train_net
+
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    cfg_file = _tiny_yaml(tmp_path / "tiny.yaml", **{"data.train_datasets": ["coco_panoptic_train"],
+                                                     "data.dataset_ratios": [1.0]})
+    monkeypatch.setattr("hipie_torch.data.loader.TrainLoader.__init__",
+                        lambda self, *a, **k: setattr(self, "tasks", ["detection"]))
+    trainer, _ = train_net.build_trainer(["--config-file", cfg_file, "--device", "cpu",
+                                          "--tensorboard", "--no-eval", "output_dir",
+                                          str(tmp_path / "run")])
+    assert trainer.storage._tb is None
+    assert capsys.readouterr().out.splitlines() == [
+        "[train_net] --tensorboard: torch.utils.tensorboard does not import; training without it"]
 
 
 def test_jax_export_loads_through_weights(tmp_path):

@@ -5,6 +5,7 @@ arithmetic in another order gives ~1e-6 relative; assignments and integer
 outputs must be equal.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -4,6 +4,7 @@ the tiny training config (test_torch_train_common.py): the parameters of
 label JAX gives it, and the train-mode outputs agree.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

@@ -9,6 +9,7 @@ no corners inside are all covered. f32 throughout: the two sides sum the same
 products in other orders, 1e-5 relative in norm.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax

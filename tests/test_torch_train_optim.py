@@ -1,8 +1,12 @@
 """The port's optimizer and training loop on the CPU: two AdamW updates
 against optax from the tiny training config's parameters, with and without
 gradient accumulation (optax.MultiSteps), the lr schedule against JAX's, the
-bf16-moment option refused, and the Trainer over make_train_step.
+bf16 first moment (mu_dtype) against optax on a small module, and the Trainer
+over make_train_step.
 """
+
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
+import copy
 
 import numpy as np
 import pytest
@@ -21,7 +25,14 @@ def jax_state():
     return arrays, model, params, jcfg
 
 
-def _adamw_against_optax(jax_state, grad_accum: int):
+@pytest.fixture(scope="module")
+def port_model(jax_state):
+    """The port's training model with the JAX parameters, built once; each test
+    takes a deep copy."""
+    return port_model_from_jax(jax_state[2])[0]
+
+
+def _adamw_against_optax(jax_state, port_model, grad_accum: int):
     """Two optimizer updates of the port against optax's from the same
     parameters and gradients (random for the trainable leaves, zero for the
     frozen ones, as stop_gradient leaves them), each update made of
@@ -60,8 +71,7 @@ def _adamw_against_optax(jax_state, grad_accum: int):
         p = jax.tree_util.tree_map(lambda a, b: np.asarray(a) + np.asarray(b), p, upd)
         if (i + 1) % grad_accum == 0:
             want_steps.append(export_hipie_checkpoint(to_numpy_tree(upd)["params"], cfg))
-    model, _ = port_model_from_jax(params)
-    model.double()
+    model = copy.deepcopy(port_model).double()
     opt = GroupedAdamW(cfg.solver, model)
     for step, (want, tol) in enumerate(zip(want_steps, (1e-5, 3e-5))):
         before = {n: q.detach().clone() for n, q in model.named_parameters()}
@@ -85,17 +95,17 @@ def _adamw_against_optax(jax_state, grad_accum: int):
     assert opt.updates == 2
 
 
-def test_adamw_steps_match_optax(jax_state):
+def test_adamw_steps_match_optax(jax_state, port_model):
     """Two AdamW steps against optax's (see _adamw_against_optax)."""
-    _adamw_against_optax(jax_state, 1)
+    _adamw_against_optax(jax_state, port_model, 1)
 
 
-def test_grad_accum_matches_optax_multisteps(jax_state):
+def test_grad_accum_matches_optax_multisteps(jax_state, port_model):
     """grad_accum = 2: four micro-steps, two updates, against
     optax.MultiSteps(every_k_schedule=2) around the same chain: the running
     mean of the micro-steps' gradients, clipped after the mean, and the
     schedule counted in updates, not micro-steps."""
-    _adamw_against_optax(jax_state, 2)
+    _adamw_against_optax(jax_state, port_model, 2)
 
 
 def test_lr_schedule_matches_jax():
@@ -110,11 +120,139 @@ def test_lr_schedule_matches_jax():
 
 
 def test_mu_dtype_bf16_is_not_ported():
+    """Of the first moment's dtypes, the port takes f32 and bf16 (optax's
+    mu_dtype); any other is not ported and raises."""
     from hipie_torch.train.optimizer import GroupedAdamW
 
-    cfg = train_config(**{"solver.mu_dtype": "bfloat16"})
-    with pytest.raises(NotImplementedError):
-        GroupedAdamW(cfg.solver, torch.nn.Linear(2, 2))
+    for dtype in ("float16", "float64"):
+        with pytest.raises(NotImplementedError, match="mu_dtype"):
+            GroupedAdamW(train_config(**{"solver.mu_dtype": dtype}).solver,
+                         torch.nn.Linear(2, 2))
+
+
+# (port name, JAX path, shape): one leaf of each of the optimizer's six labels
+# (frozen, lang, vl, backbone, offsets, base) under both packages' naming rules
+LABEL_LEAVES = [
+    ("detr.backbone.stem.weight", "backbone/stem_conv1/kernel", (3, 4)),
+    ("text_encoder.dense.weight", "text_encoder/dense/kernel", (6, 5)),
+    ("detr.vl_layers.0.weight", "transformer/vl_layers_0/v_proj/kernel", (4, 4)),
+    ("detr.backbone.res3.weight", "backbone/res3_0/conv1/kernel", (8, 3)),
+    ("detr.backbone.res3.bias", "backbone/res3_0/conv1/bias", (3,)),
+    ("detr.sampling_offsets.weight", "transformer/sampling_offsets/kernel", (5, 7)),
+    ("detr.class_embed.weight", "class_embed/kernel", (7, 9)),
+    ("detr.class_embed.bias", "class_embed/bias", (9,)),
+]
+
+
+def _labelled_module(values):
+    """A module whose parameters carry LABEL_LEAVES' port names."""
+    root = torch.nn.Module()
+    for (name, _, _), v in zip(LABEL_LEAVES, values):
+        *path, leaf = name.split(".")
+        m = root
+        for part in path:
+            if not hasattr(m, part):
+                m.add_module(part, torch.nn.Module())
+            m = getattr(m, part)
+        m.register_parameter(leaf, torch.nn.Parameter(torch.from_numpy(v.copy())))
+    return root
+
+
+def test_mu_dtype_bf16_matches_optax(tmp_path):
+    """solver.mu_dtype = "bfloat16" against JAX's build_optimizer (optax
+    scale_by_adam(mu_dtype=bfloat16) in each group's chain, clipping,
+    multi_transform) on one leaf of every label, five updates from the same
+    gradients: the stored first moment bf16 and equal to optax's bit for bit
+    after the first update, the parameters within 1e-6 (1 + |p|) after the
+    fifth; then with grad_accum 2 (optax.MultiSteps), two updates of two
+    micro-steps each at the same limit; and a checkpoint of the state
+    round-trips bit-equal, its first moment still bf16."""
+    import optax
+
+    from hipie_tpu.train.optimizer import build_optimizer, param_labels as jlabels
+
+    from hipie_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from hipie_torch.train.optimizer import GroupedAdamW
+    from hipie_torch.train.step import TrainState
+
+    def nest(flat):
+        tree = {}
+        for (_, path, _), v in zip(LABEL_LEAVES, flat):
+            *dirs, leaf = path.split("/")
+            d = tree
+            for part in dirs:
+                d = d.setdefault(part, {})
+            d[leaf] = v
+        return tree
+
+    def leaves(tree):
+        out = []
+        for _, path, _ in LABEL_LEAVES:
+            d = tree
+            for part in path.split("/"):
+                d = d[part]
+            out.append(d)
+        return out
+
+    r = np.random.RandomState(0)
+    values = [r.randn(*shape).astype(np.float32) for _, _, shape in LABEL_LEAVES]
+    grads = [[r.randn(*shape).astype(np.float32) * 0.05 for _, _, shape in LABEL_LEAVES]
+             for _ in range(5)]
+    overrides = {"solver.mu_dtype": "bfloat16", "solver.base_lr": 1e-3, "solver.lang_lr": 1e-3,
+                 "solver.vl_lr": 1e-3}
+    jtree = nest([jax.numpy.asarray(v) for v in values])
+    assert sorted(set(leaves(jlabels(jtree)))) == ["backbone", "base", "frozen", "lang",
+                                                   "offsets", "vl"]
+    for accum in (1, 2):
+        cfg_over = {**overrides, "solver.grad_accum": accum}
+        jsolver = train_config(jconfig, **cfg_over).solver
+        tx = build_optimizer(jsolver, jtree)
+        st, p = tx.init(jtree), jtree
+        model = _labelled_module(values)
+        opt = GroupedAdamW(train_config(**cfg_over).solver, model)
+        assert set(opt.labels.values()) == {"backbone", "base", "frozen", "lang", "offsets", "vl"}
+        params = dict(model.named_parameters())
+        for i, g in enumerate(grads[:5 if accum == 1 else 4]):
+            frozen = [opt.labels[n] == "frozen" for n, _, _ in LABEL_LEAVES]
+            g = [np.zeros_like(x) if f else x for x, f in zip(g, frozen)]
+            upd, st = tx.update(nest([jax.numpy.asarray(x) for x in g]), st, p)
+            p = optax.apply_updates(p, upd)
+            for (n, _, _), x in zip(LABEL_LEAVES, g):
+                params[n].grad = None if opt.labels[n] == "frozen" else torch.from_numpy(x)
+            opt.step()
+            if i == 0 and accum == 1:
+                adam = [s for s in jax.tree_util.tree_leaves(
+                    st, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+                    if isinstance(s, optax.ScaleByAdamState)]
+                for (n, _, _), f in zip(LABEL_LEAVES, frozen):
+                    if f:
+                        continue
+                    mu = opt.opt.state[params[n]]["exp_avg"]
+                    want = [leaves(a.mu)[[x for x, _, _ in LABEL_LEAVES].index(n)] for a in adam]
+                    want = [w for w in want if not isinstance(w, optax.MaskedNode)]
+                    assert mu.dtype == torch.bfloat16 and len(want) == 1, n
+                    assert want[0].dtype == jax.numpy.bfloat16
+                    assert np.array_equal(mu.view(torch.int16).numpy(),
+                                          np.asarray(want[0]).view(np.int16)), n
+        assert opt.updates == (5 if accum == 1 else 2)
+        for (n, _, _), w in zip(LABEL_LEAVES, leaves(p)):
+            w = np.asarray(w)
+            got = params[n].detach().numpy()
+            assert not np.array_equal(got, values[[x for x, _, _ in LABEL_LEAVES].index(n)]) \
+                or opt.labels[n] == "frozen", n
+            np.testing.assert_array_less(np.abs(got - w), 1e-6 * (1 + np.abs(w)), err_msg=n)
+    path = save_checkpoint(str(tmp_path), TrainState(model, opt, 4), 4)
+    fresh_model = _labelled_module(values)
+    fresh = TrainState(fresh_model, GroupedAdamW(train_config(**cfg_over).solver, fresh_model), 0)
+    fresh = restore_checkpoint(path, fresh)
+    before, after = opt.opt.state_dict()["state"], fresh.optimizer.opt.state_dict()["state"]
+    assert before.keys() == after.keys() and fresh.optimizer.updates == 2
+    for k in before:
+        for key in ("step", "exp_avg", "exp_avg_sq"):
+            x, y = before[k][key], after[k][key]
+            assert x.dtype == y.dtype and (key != "exp_avg" or y.dtype == torch.bfloat16)
+            assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), fresh_model.parameters()))
 
 
 def test_grad_accum_applies_the_mean_every_kth_step():
@@ -144,10 +282,10 @@ def test_grad_accum_applies_the_mean_every_kth_step():
         torch.testing.assert_close(p, q, rtol=1e-6, atol=1e-9)
 
 
-def test_trainer_takes_steps_on_the_cpu(tmp_path):
-    """Trainer over make_train_step with device="cpu": the lr follows the
-    schedule, every trainable parameter gets a finite gradient and the frozen
-    ones none, and the parameters move."""
+def test_trainer_takes_steps_on_the_cpu(port_model, tmp_path):
+    """Trainer over make_train_step with device="cpu" (the shared model's
+    copy): the lr follows the schedule, every trainable parameter gets a finite
+    gradient and the frozen ones none, and the parameters move."""
     import dataclasses
 
     from hipie_torch.train.optimizer import lr_schedule
@@ -155,7 +293,7 @@ def test_trainer_takes_steps_on_the_cpu(tmp_path):
     from hipie_torch.train.trainer import Trainer
 
     cfg = dataclasses.replace(train_config(), output_dir=str(tmp_path))
-    state = create_train_state(cfg, seed=0, device="cpu")
+    state = create_train_state(cfg, device="cpu", model=copy.deepcopy(port_model))
     start = {n: p.detach().clone() for n, p in state.model.named_parameters()}
     batches = [torch_batch(batch_arrays(seed)) for seed in range(3)]
     trainer = Trainer(cfg, state, make_train_step(cfg, state, device="cpu"), iter(batches),

@@ -28,6 +28,7 @@ sides; those, with a reference gradient under 1e-5 of the largest, are held to
 an absolute limit of 1e-5 of the largest instead.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor

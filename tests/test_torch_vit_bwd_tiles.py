@@ -22,6 +22,7 @@ the card's limits (chip_smoke.check_vit_attention_bwd: dq, dk 1e-2; dv, d
 rel_h, d rel_w 2e-3).
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax.numpy as jnp

@@ -20,6 +20,7 @@ to 2e-2 (P unnormalised when rounded to bf16 in the kernel, normalised in the
 references; one bf16 rounding of the output), the card's tolerance.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import numpy as np
 import pytest
 import jax.numpy as jnp

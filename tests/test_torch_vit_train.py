@@ -19,6 +19,7 @@ Inputs come from numpy seeds; f32 unless a test says otherwise. Nothing in the
 JAX package changes: the tests patch its module attributes for their duration.
 """
 
+import torch_threads  # noqa: F401  (first: sizes torch's CPU threads)
 import dataclasses
 import tempfile
 
