@@ -168,10 +168,20 @@ prints no result line):
     and encode ms at 640x480; (f) BoxInst's losses and logit gradient at N =
     100, 256x256, K = 3, dilation 2 against the CPU's, with their ms; then the
     bounds of CLIP's and Swin-L's attention from their shapes.
-Every shape at which phases 5, 8, 13 and 14 launched K-A, every shape at which
-phases 5 to 14 launched K-B, every shape at which phases 7 to 9 and 12 to 14
-launched K-D, and every shape at which phases 8, 13 and 14 launched K-E must
-be one that phase 3 checked.
+15. tensor parallel (phase_tensor_parallel): tp = 2 with shard_tokens on two
+    gloo ranks on the one card (hipie_torch/parallel/tensor.py): (a) the ViT-H
+    request in f32 against one process's with its two-stage choices replayed,
+    then bf16 requests with K-A at BH = 8 and K-B at Q = 10880; (a') an R50
+    predictor call (20197 tokens split 10099 / 10098); (b) the R50 step in f32
+    against one process's (13b's limits), 2 bf16 steps with the replicated
+    parameters bit-identical, its checkpoint restored at tp = 1 bit for bit;
+    (c) a ViT-H step in f32 at batch 1 against one process's (within twice
+    the one-process step's own round-off twin; the rel-pos tables' gradients
+    among those held), then one in bf16 at batch 2 a rank, its launches exact.
+Every shape at which phases 5, 8, 13, 14 and 15 launched K-A, every shape at
+which phases 5 to 15 launched K-B, every shape at which phases 7 to 9 and 12 to
+15 launched K-D, and every shape at which phases 8, 13, 14 and 15 launched K-E
+must be one that phase 3 checked.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
@@ -268,6 +278,16 @@ MSDA_CASES = (
     ("rank_maskdino", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.bfloat16, "uniform"),
     ("rank_decoder_f32", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.float32, "uniform"),
     ("rank_maskdino_f32", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.float32, "uniform"),
+    # phase 15, sequence parallelism at tp = 2: a rank's share of the encoder's
+    # queries against the whole value table, and the f32 serving call's decoders
+    ("sp_encoder", VITH_LEVELS, 1, VITH_S // 2, torch.bfloat16, "uniform"),
+    ("sp_encoder_f32", VITH_LEVELS, 1, VITH_S // 2, torch.float32, "uniform"),
+    ("decoder_f32", VITH_LEVELS, 1, 910, torch.float32, "uniform"),
+    ("maskdino_f32", VITH_LEVELS[::-1], 1, 300, torch.float32, "uniform"),
+    ("sp_train_encoder", VITH_LEVELS, TRAIN_B, VITH_S // 2, torch.bfloat16, "uniform"),
+    ("sp_train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S // 2, torch.float32, "uniform"),
+    ("sp_r50_encoder", R50_LEVELS, 1, R50_S - R50_S // 2, torch.bfloat16, "uniform"),
+    ("sp_r50_encoder_rank1", R50_LEVELS, 1, R50_S // 2, torch.bfloat16, "uniform"),
 )
 # K-D's cases: every shape the training phase launches it at (bf16), each also
 # in f32, and the encoder with local locations; main() fails if the training
@@ -292,15 +312,27 @@ MSDA_BWD_CASES = (
     ("rank_encoder_f32", VITH_LEVELS, 1, VITH_S, torch.float32, "uniform"),
     ("rank_decoder_f32", VITH_LEVELS, 1, TRAIN_DEC_Q, torch.float32, "uniform"),
     ("rank_maskdino_f32", VITH_LEVELS[::-1], 1, TRAIN_MD_Q, torch.float32, "uniform"),
+    # phase 15 (sequence parallelism at tp = 2): the R50 and ViT-H steps' share
+    # of the encoder's queries at batch 2, f32 then bf16, the f32 ViT-H step's
+    # at batch 1, and R50 serving's uneven split of 20197 tokens
+    ("sp_train_encoder", VITH_LEVELS, TRAIN_B, VITH_S // 2, torch.bfloat16, "uniform"),
+    ("sp_train_encoder_f32", VITH_LEVELS, TRAIN_B, VITH_S // 2, torch.float32, "uniform"),
+    ("sp_rank_encoder_f32", VITH_LEVELS, 1, VITH_S // 2, torch.float32, "uniform"),
+    ("sp_r50_encoder", R50_LEVELS, 1, R50_S - R50_S // 2, torch.bfloat16, "uniform"),
+    ("sp_r50_encoder_rank1", R50_LEVELS, 1, R50_S // 2, torch.bfloat16, "uniform"),
 )
 # K-A's cases (name, BH, Kh, Kw, hd), bf16: a ViT-H request (one image: BH =
-# 16, N = 4096, hd 80) and the ViT-H training step (batch 2: BH = 32), each
-# with and without the logsumexp. main() fails if the serve or a train phase
+# 16, N = 4096, hd 80), the ViT-H training step (batch 2: BH = 32) and a
+# tensor-parallel rank's half of the heads (BH = 8), each with and without the
+# logsumexp. main() fails if the serve or a train phase
 # launches K-A at a shape not here.
 VIT_CASES = (
     ("serve", 16, 64, 64, 80),
     ("train", 32, 64, 64, 80),
+    ("tp2", 8, 64, 64, 80),           # phase 15: a rank's 8 of 16 heads, one image
 )
+# (phase 15's ViT-H step, batch 2 a rank at 8 heads, takes K-A and K-E at BH =
+# 16: the "serve" and "one_image" cases)
 # K-E's cases (name, BH, Kh, Kw, hd), bf16: the ViT-H training shape (batch 2:
 # BH = 32, N = 4096, hd 80), one image, ViT-L's head dim 64 (these three take
 # the wgmma design: Kw = 64, hd 64 or 80, N a multiple of 128), then Kh = Kw =
@@ -1196,22 +1228,30 @@ def timing_msda(shapes=None):
     return timing_calls(msda_module, "ms_deform_attn", record)
 
 
-def vit_huge_server(dev, seed: int = SEED):
-    """HIPIEModel(vit_huge_coco_panoptic()) at full width in bf16 with random
-    weights from a seeded torch.Generator, and ``request(img)``, which answers
-    one (1, 1024, 1024, 3) uint8 image with a synthetic 256-token prompt (its
-    text features encoded once, here) and a 133-class map. Returns
-    (cfg, model, request); call ``request`` under torch.inference_mode()."""
+def vit_huge_server(dev, seed: int = SEED, dtype=torch.bfloat16, overrides=None, out=None):
+    """HIPIEModel(vit_huge_coco_panoptic()) at full width in ``dtype`` (bf16)
+    with random weights from a seeded torch.Generator, cut to this rank's
+    shard under a model axis (``shard_module_``, a no-op without one), and
+    ``request(img)``, which answers one (1, 1024, 1024, 3) uint8 image with a
+    synthetic 256-token prompt (its text features encoded once, here) and a
+    133-class map. ``overrides`` go to the config; with ``out`` (a dict),
+    each request also leaves the model's outputs there. Returns (cfg, model,
+    request); call ``request`` under torch.inference_mode()."""
+    from hipie_torch.config import apply_overrides
     from hipie_torch.models.hipie import HIPIEModel, hipie_inference
+    from hipie_torch.parallel.tensor import shard_module_
     from hipie_torch.presets import vit_huge_coco_panoptic
     from hipie_torch.utils.weights import random_init_
 
     cfg = vit_huge_coco_panoptic()
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
     mc = cfg.model
     with torch.device(dev):
         model = HIPIEModel(mc).eval()
     random_init_(model, torch.Generator(device=dev).manual_seed(seed))
-    model.to(torch.bfloat16)
+    model.to(dtype)
+    shard_module_(model)
     L = mc.text.max_query_len
     ids = torch.from_numpy((np.arange(L) % 1000 + 999)[None]).to(dev)
     am = torch.ones(1, L, dtype=torch.long, device=dev)
@@ -1222,8 +1262,10 @@ def vit_huge_server(dev, seed: int = SEED):
         lang_hidden = model.encode_text(ids, am)
 
     def request(img):
-        out = model(img.to(dev), pad, ids, am, sizes, lang_hidden=lang_hidden)
-        return hipie_inference(out, maps, cfg.test, mc, pad_mask_s4=pad[0][::4, ::4])
+        got = model(img.to(dev), pad, ids, am, sizes, lang_hidden=lang_hidden)
+        if out is not None:
+            out.update(got)
+        return hipie_inference(got, maps, cfg.test, mc, pad_mask_s4=pad[0][::4, ::4])
 
     return cfg, model, request
 
@@ -1452,6 +1494,7 @@ def phase_predict(dev, card):
 
 TRAIN_STEPS = 4
 VIT_TRAIN_STEPS = 3
+VITH_BLOCKS = 32
 VITH_GLOBAL_BLOCKS = 24
 TRAIN_N = 100                 # GT slots (max_insts_num)
 
@@ -3228,6 +3271,523 @@ def phase_last_modules(dev, card, pipe_root: str, vit_f32: dict):
     return out, shapes
 
 
+TP = 2
+TP_BF16_REQUESTS = 2
+TP_R50_STEPS = 2
+TP_VITH_BATCH = 2                 # the recipe's per-card batch, on each of the two ranks
+# 15 (a): the f32 ViT-H request at tp = 2 against one process's. The two differ
+# by the order of float adds alone (the row-parallel sums of two partial
+# products, cuBLAS's tiling of half-width matrices), which near-ties turn into
+# discrete differences: the two-stage top-900 of 21760 proposals takes
+# near-tied tokens in another order, so that a slot's learned content meets
+# another box (on an H100 without the replay: the decoder's states 0.73
+# apart with all 910 references present). So the run replays the one-process
+# run's two-stage choices (``two_stage_choices``, as 13b replays the
+# matches); then the dense
+# outputs (the encoder memory, the encoder's class logits, the semantic map)
+# and the decoder's outputs on the slots whose initial references align (as
+# tests/test_torch_slice.py aligns them: the nearest one-process slot, within
+# TP_ALIGN_TOL in box units) are held within TP_SERVE_REL of each tensor's
+# largest magnitude, and at least TP_ALIGNED of the 910 slots must align; the
+# detections sorted by score, which near-tied scores may still swap, are
+# reported beside them, not held.
+TP_SERVE_REL = 1e-4
+TP_ALIGN_TOL = 1e-4
+TP_ALIGNED = 0.99
+# 15 (c): the f32 ViT-H step at tp = 2 against one process's. Its 32 f32 blocks
+# carry round-off far: the one-process step itself, repeated on images scaled
+# by TP_TWIN_SCALE (two ulps), moved its gradients by a median 3.9e-4 and at
+# most 9.9e-3 (on an NVIDIA H100 80GB HBM3, 700 W), past 13b's median limit,
+# while the tp = 2 step's moved by 3.5e-4 and 8.1e-3. So (c) repeats that twin
+# in the same run and holds the tp = 2 step's gradients' median and largest
+# error, and the rel-pos tables' largest, within TP_TWIN_FACTOR of the twin's
+# (a rank's heads' part of a rel-pos gradient alone is ~0.5 off); its loss terms
+# at 13b's limit.
+TP_TWIN_SCALE = 1 + 2 ** -22
+TP_TWIN_FACTOR = 2.0
+TP_F32_KEYS = ("memory", "enc_outputs_class", "init_reference", "hs", "pred_logits",
+               "pred_boxes")
+
+
+@contextlib.contextmanager
+def two_stage_choices(ks, replay=None):
+    """Within the block each two-stage top-k (a ``Tensor.topk`` over dim 1
+    taking k in ``ks``: the encoder's proposals and MaskDINO's) appends its
+    indices (on the host) to the yielded list or, with ``replay`` (another
+    run's list), takes them from it in order. Two runs that round apart put
+    near-tied proposals in another order, and a slot's learned content then
+    meets another reference box; replaying the choice, as 13b replays the
+    matches, leaves the comparison continuous."""
+    inner = torch.Tensor.topk
+    chosen, queue = [], None if replay is None else list(replay)
+
+    def topk(self, k, dim=-1, largest=True, sorted=True):
+        if dim != 1 or k not in ks:
+            return inner(self, k, dim, largest, sorted)
+        if queue is None:
+            res = inner(self, k, dim, largest, sorted)
+            chosen.append(res.indices.cpu())
+            return res
+        idx = queue.pop(0).to(self.device)
+        return torch.return_types.topk((self.gather(1, idx), idx))
+
+    torch.Tensor.topk = topk
+    try:
+        yield chosen
+    finally:
+        torch.Tensor.topk = inner
+    if queue:
+        raise AssertionError(f"two_stage_choices: {len(queue)} recorded choices left unused")
+
+
+def two_stage_ks(cfg):
+    return {cfg.model.transformer.two_stage_num_proposals, cfg.model.maskdino.num_queries}
+
+
+def tp_f32_cells():
+    """Phase 15's f32 steps (TF32 off) held against one process's: (name,
+    config, batch): (b) the R50 step on 13b's pair batch, (c) the ViT-H step
+    on its first image (batch 1: two ranks' f32 ViT-H steps share the card)."""
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.presets import r50_coco_panoptic, vit_huge_coco_panoptic
+
+    f32 = {"model.dtype": "float32"}
+    r50 = apply_overrides(r50_coco_panoptic(), f32)
+    vith = apply_overrides(vit_huge_coco_panoptic(), f32)
+    return [("r50", r50, pair_batches(r50)[0]),
+            ("vith", vith, rank_batch(pair_batches(vith)[0], 0))]
+
+
+def one_process_f32_step(dev, work: str, name: str, cfg, batch) -> list:
+    """One process's f32 step of a ``tp_f32_cells`` cell: its weights,
+    gradients, point picks, matches, assignments and two-stage choices written
+    to ``work`` under ``name``; returns its loss terms."""
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    state = create_train_state(cfg, seed=SEED, device=dev)
+    torch.save(_cpu_snapshot(state.model), os.path.join(work, f"{name}_weights.pt"))
+    step = make_train_step(cfg, state, device=dev)
+    with recording_step(state) as rec, two_stage_choices(two_stage_ks(cfg)) as choices:
+        step(state, batch, GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.synchronize()
+    torch.save({k: (None if v is None else v.cpu()) for k, v in rec["grads"][0].items()},
+               os.path.join(work, f"{name}_grads.pt"))
+    torch.save({**{k: rec[k] for k in ("picks", "matches", "assign")}, "choices": choices},
+               os.path.join(work, f"{name}_one.pt"))
+    terms = rec["terms"]
+    del state, step, rec
+    torch.cuda.empty_cache()
+    return terms
+
+
+def tp_f32_step(dev, work: str, name: str, cfg, batch) -> dict:
+    """This rank's f32 step of a ``tp_f32_cells`` cell at tp = 2 with
+    shard_tokens, from the one-process step's weights with its point picks,
+    matches and two-stage choices replayed: its loss terms, each gradient's
+    relative error against the one-process one (this rank's shard of it) and
+    the assignments that differ."""
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.parallel import mesh
+    from hipie_torch.parallel.tensor import shard_state_dict, take_shard, tp_plan
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    one = torch.load(os.path.join(work, f"{name}_one.pt"), weights_only=False)
+    want = torch.load(os.path.join(work, f"{name}_grads.pt"), weights_only=True)
+    weights = torch.load(os.path.join(work, f"{name}_weights.pt"), weights_only=True)
+    cfg = apply_overrides(cfg, {"model.transformer.shard_tokens": True})
+    state = create_train_state(cfg, seed=SEED, device=dev)
+    plan = tp_plan(state.model)
+    state.model.load_state_dict(shard_state_dict(weights, plan))
+    mine = {n: (None if g is None else take_shard(g, *plan[n], mesh.model_rank(), TP)
+                if n in plan else g) for n, g in want.items()}
+    del weights, want
+    step = make_train_step(cfg, state, device=dev)
+    with recording_step(state, one["picks"], one["matches"], ref_grads=[mine]) as rec, \
+            two_stage_choices(two_stage_ks(cfg), one["choices"]):
+        step(state, batch, GeneratorKeys(torch.Generator(device=dev).manual_seed(SEED)))
+    torch.cuda.synchronize()
+    out = {"terms": rec["terms"], "grad_errs": rec["grad_errs"][0],
+           "assign_mismatch": sum(int(not torch.equal(g, w)) for g, w in
+                                  zip(rec["assign"], one["assign"]))}
+    del state, step, rec, mine
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tp_rank(rank: int, work: str):
+    """One of phase 15's two gloo ranks on cuda:0 at tp = 2 (dp = 1); writes
+    its record to ``work``."""
+    import hipie_torch.models.msda_module as msda_module
+    import hipie_torch.ops.ms_deform_attn as msda_ops
+    import hipie_torch.ops.vit_attention as vit_ops
+    from hipie_torch import kernels
+    from hipie_torch.config import apply_overrides
+    from hipie_torch.parallel import mesh
+    from hipie_torch.parallel.dryrun import state_digest, tensor_digest
+    from hipie_torch.parallel.tensor import tp_plan
+    from hipie_torch.presets import r50_coco_panoptic, vit_huge_coco_panoptic
+    from hipie_torch.train.checkpoint import save_checkpoint
+    from hipie_torch.train.step import create_train_state, make_train_step
+    from hipie_torch.train.synthetic import train_batches
+    from hipie_torch.train.trainer import Trainer
+    from hipie_torch.utils.rng import GeneratorKeys
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = mesh.init_distributed("gloo", f"file://{work}/rendezvous", rank=rank, world_size=TP,
+                                device=torch.device("cuda", 0))
+    out = {"rank": rank, "ka": [], "kb": [], "kd": [], "ke": []}
+    sp = {"model.transformer.shard_tokens": True}
+    try:
+        mesh.create_mesh(tp=TP)
+        with timing_vit_kernel(out["ka"]), \
+                timing_calls(msda_module, "ms_deform_attn",
+                             lambda *a, **k: out["kb"].append(msda_shape(*a, **k)), timed=False), \
+                timing_calls(msda_ops, "ms_deform_attn_backward",
+                             lambda *a: out["kd"].append(msda_shape(*a[:4])), timed=False), \
+                timing_calls(vit_ops, "vit_attention_backward",
+                             lambda *a: out["ke"].append(vit_shape(a[0], a[3], a[4])),
+                             timed=False):
+            # (a) ViT-H serving at tp = 2 with shard_tokens: f32, then bf16
+            got = {}
+            cfg, model, request = vit_huge_server(dev, dtype=torch.float32, overrides=sp,
+                                                  out=got)
+            img = serve_images(1)[0]
+            choices = torch.load(os.path.join(work, "serve_choices.pt"), weights_only=True)
+            with torch.inference_mode(), two_stage_choices(two_stage_ks(cfg), choices):
+                res = request(img)
+            torch.cuda.synchronize()
+            out["f32"] = {**{k: got[k].cpu() for k in TP_F32_KEYS},
+                          **{k: getattr(res, k).cpu() for k in ("scores", "boxes", "sem_seg")}}
+            del model, request, got, res
+            torch.cuda.empty_cache()
+            cfg, model, request = vit_huge_server(dev, overrides=sp)
+            n_global = sum(1 for b in model.detr.detr.backbone[0].backbone.blocks
+                           if b.window_size == 0)
+            out["serve"] = []
+            for img in serve_images(TP_BF16_REQUESTS):
+                kernels.reset_launch_counts()
+                mesh.COLLECTIVES.clear()
+                with torch.inference_mode(), timing_vit_attention() as ka_ev, \
+                        timing_msda() as kb_ev:
+                    t0 = time.perf_counter()
+                    res = request(img)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                check_result(res, cfg)
+                out["serve"].append({"ms": ms, "launches": dict(kernels.LAUNCHES),
+                                     "ka_ms": sum(a.elapsed_time(b) for a, b in ka_ev),
+                                     "kb_ms": sum(a.elapsed_time(b) for a, b in kb_ev),
+                                     "collectives": dict(mesh.COLLECTIVES)})
+            out["n_global"], out["n_msda"] = n_global, msda_per_call(cfg.model)
+            out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            del model, request, res
+            torch.cuda.empty_cache()
+
+            # (a') the R50 predictor under shard_tokens: 20197 tokens split unevenly
+            from hipie_torch.data.label_spaces import COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING
+            from hipie_torch.models.hipie import HIPIEModel
+            from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+            from hipie_torch.predictor import HIPIEPredictor
+            from hipie_torch.utils.weights import random_init_
+
+            rcfg = apply_overrides(r50_coco_panoptic(), sp)
+            with torch.device(dev):
+                rmodel = HIPIEModel(rcfg.model).eval()
+            random_init_(rmodel, torch.Generator(device=dev).manual_seed(SEED))
+            rmodel.to(torch.bfloat16)
+            pred = HIPIEPredictor(rcfg, rmodel, WordPieceTokenizer.toy(), bucket=R50_BUCKET,
+                                  device=dev)
+            labels = [n if thing else f"{n}:stuff"
+                      for n, thing in zip(COCO_PANOPTIC_133, COCO_PANOPTIC_IS_THING)]
+            image = np.random.RandomState(SEED + 2).randint(0, 256, R50_IMAGE + (3,)).astype(
+                np.uint8)
+            n_kb = len(out["kb"])
+            res = pred(image, test_categories=labels)
+            _check_prediction(res, "detection")
+            out["r50_encoder_q"] = max(s[2] for s in out["kb"][n_kb:])
+            del rmodel, pred, res
+            torch.cuda.empty_cache()
+
+            # (b) the R50 step and (c) the ViT-H step at tp = 2 with shard_tokens:
+            # f32 (TF32 off) against the one-process step, picks, matches and
+            # two-stage choices replayed
+            out["train_f32"] = {name: tp_f32_step(dev, work, name, cfg, batch)
+                                for name, cfg, batch in tp_f32_cells()}
+
+            # (b) two bf16 steps through the Trainer, then a checkpoint at tp = 2
+            cfg = dataclasses.replace(apply_overrides(r50_coco_panoptic(), sp),
+                                      output_dir=os.path.join(work, "run"))
+            state = create_train_state(cfg, seed=SEED, device=dev)
+            plan = tp_plan(state.model)
+            inner = make_train_step(cfg, state, device=dev)
+            per_step, replicated = [], []
+
+            def train_step(st, batch, keys):
+                kernels.reset_launch_counts()
+                mesh.COLLECTIVES.clear()
+                t = time.perf_counter()
+                st, metrics = inner(st, batch, keys)
+                torch.cuda.synchronize()
+                per_step.append({"ms": 1e3 * (time.perf_counter() - t),
+                                 "launches": dict(kernels.LAUNCHES),
+                                 "collectives": dict(mesh.COLLECTIVES)})
+                replicated.append(tensor_digest(p for n, p in st.model.named_parameters()
+                                                if n not in plan))
+                return st, metrics
+
+            torch.cuda.reset_peak_memory_stats()
+            trainer = Trainer(cfg, state, train_step, iter(pair_batches(cfg, TP_R50_STEPS)),
+                              log_period=1, device=dev, checkpoints=False)
+            trainer.train(max_iter=TP_R50_STEPS)
+            out.update(r50_per_step=per_step, r50_replicated=replicated,
+                       r50_peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                       r50_total_loss=[h["total_loss"] for h in trainer.history],
+                       r50_n_sharded=len(plan))
+            save_checkpoint(work, state, TP_R50_STEPS, name="tp2")
+            out["r50_digest"] = state_digest(state)
+            del state, inner, trainer
+            torch.cuda.empty_cache()
+
+            # (c) one bf16 ViT-H step at tp = 2 with shard_tokens
+            cfg = apply_overrides(vit_huge_coco_panoptic(), sp)
+            state = create_train_state(cfg, seed=SEED, device=dev)
+            want_launches = train_launches(cfg, state.model)
+            step = make_train_step(cfg, state, device=dev)
+            batch = train_batches(cfg, 1, SEED, img=IMG, slots=TRAIN_N, batch=TP_VITH_BATCH)[0]
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            t = time.perf_counter()
+            _, metrics = step(state, batch, GeneratorKeys(torch.Generator(device=dev)
+                                                          .manual_seed(SEED)))
+            torch.cuda.synchronize()
+            out["vith"] = {"ms": 1e3 * (time.perf_counter() - t),
+                           "launches": dict(kernels.LAUNCHES), "want": want_launches,
+                           "loss": float(metrics["total_loss"]),
+                           "grad_norm": float(metrics["grad_norm"]),
+                           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                           "replicated": tensor_digest(
+                               p for n, p in state.model.named_parameters()
+                               if n not in tp_plan(state.model))}
+            del state, step
+            torch.cuda.empty_cache()
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        mesh.shutdown_distributed()
+
+
+def phase_tensor_parallel(dev, card):
+    """15: tensor parallelism (tp = 2) with shard_tokens on two gloo ranks on
+    the one card (NCCL refuses two ranks on one device; the times say nothing
+    of TP across cards): (a) the ViT-H request at full width, f32 (TF32 off)
+    with the one-process request's two-stage choices replayed, against it
+    within TP_SERVE_REL, then TP_BF16_REQUESTS bf16
+    requests timed by the host and K-A and K-B by CUDA events, launches exact;
+    (a') an R50 predictor call, whose 20197 encoder tokens split 10099 and
+    10098; (b) the R50 step, f32, against the one-process step with its point
+    picks, matches and two-stage choices replayed (13b's limits), then
+    TP_R50_STEPS bf16 steps
+    through the Trainer with the ranks' replicated parameters bit-identical
+    after each and K-B and K-D 21 a step, then the checkpoint written at tp = 2
+    restored at tp = 1 bit for bit; (c) the ViT-H step, f32 at batch 1, against
+    the one-process step alike, within TP_TWIN_FACTOR of the one-process step's
+    own round-off twin (the 64 rel-pos tables, whose gradient each rank takes
+    from its own heads, among those held), then one
+    bf16 step at batch TP_VITH_BATCH: each rank's peak memory and exact K-A,
+    K-E, K-B and K-D launches. Returns the record and the K-A, K-B, K-D and
+    K-E shapes."""
+    import torch.multiprocessing as mp
+
+    from hipie_torch.parallel.dryrun import state_digest
+    from hipie_torch.presets import r50_coco_panoptic
+    from hipie_torch.train.checkpoint import restore_checkpoint
+    from hipie_torch.train.step import create_train_state
+
+    work = tempfile.mkdtemp(prefix="hipie_tp_")
+    try:
+        # one process: the f32 ViT-H request, then the f32 R50 and ViT-H steps
+        got = {}
+        cfg, model, request = vit_huge_server(dev, dtype=torch.float32, out=got)
+        with torch.inference_mode(), two_stage_choices(two_stage_ks(cfg)) as choices:
+            res = request(serve_images(1)[0])
+        torch.save(choices, os.path.join(work, "serve_choices.pt"))
+        one_serve = {**{k: got[k].cpu() for k in TP_F32_KEYS},
+                     **{k: getattr(res, k).cpu() for k in ("scores", "boxes", "sem_seg")}}
+        del model, request, got, res
+        torch.cuda.empty_cache()
+        cells = tp_f32_cells()
+        one_terms = {name: one_process_f32_step(dev, work, name, cfg, batch)
+                     for name, cfg, batch in cells}
+        # (c)'s round-off twin: the one-process ViT-H step on images two ulps off
+        _, cfg, batch = cells[1]
+        twin = tp_f32_step(dev, work, "vith", cfg,
+                           batch._replace(images=batch.images.float() * TP_TWIN_SCALE))
+        twin["term"] = max(term_rel_errors(twin.pop("terms"), one_terms["vith"]).values())
+        del cells, cfg, batch
+        t0 = time.perf_counter()
+        mp.start_processes(_tp_rank, args=(work,), nprocs=TP, start_method="spawn")
+        spawn_s = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(TP)]
+        # the tp = 2 checkpoint at tp = 1
+        state = create_train_state(r50_coco_panoptic(), seed=SEED + 1, device=dev)
+        restore_checkpoint(os.path.join(work, "tp2.pth"), state)
+        tp1_digest = state_digest(state)
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    failures = []
+
+    def fail(msg):
+        failures.append(msg)
+        log(f"[tp] FAILED {msg}")
+
+    # (a)
+    rel = lambda got, want: (float((got.float() - want.float()).abs().max())
+                             / max(float(want.float().abs().max()), 1e-30))
+    errs, aligned = {}, {}
+    for r in ranks:
+        t = r["f32"]
+        want_ref, got_ref = one_serve["init_reference"][0], t["init_reference"][0]
+        dist = (want_ref[:, None, :] - got_ref[None, :, :]).abs().amax(-1)
+        near, perm = dist.min(1)
+        ok = near <= TP_ALIGN_TOL
+        ok &= torch.bincount(perm[ok], minlength=len(perm))[perm] == 1   # one to one
+        aligned[r["rank"]] = float(ok.float().mean())
+        e = {k: rel(t[k], one_serve[k]) for k in ("memory", "enc_outputs_class", "sem_seg")}
+        e["hs"] = rel(t["hs"][:, :, perm][:, :, ok], one_serve["hs"][:, :, ok])
+        for k in ("pred_logits", "pred_boxes"):
+            e[k] = rel(t[k][:, perm][:, ok], one_serve[k][:, ok])
+        shown = {k: rel(t[k], one_serve[k]) for k in ("scores", "boxes")}
+        errs[r["rank"]] = e
+        log(f"[tp] 15 (a): rank {r['rank']}, the f32 ViT-H request at tp = 2 with shard_tokens "
+            f"(TF32 off) against one process's, largest error over the largest magnitude: "
+            f"{ {k: float(f'{v:.3e}') for k, v in e.items()} } (limit {TP_SERVE_REL:.0e}; the "
+            f"decoder's on the {int(ok.sum())} of {len(ok)} slots that align, limit "
+            f"{TP_ALIGNED:.0%}); not held, the detections sorted by score: "
+            f"{ {k: float(f'{v:.3e}') for k, v in shown.items()} }")
+        if aligned[r["rank"]] < TP_ALIGNED or any(v > TP_SERVE_REL for v in e.values()):
+            fail(f"tp 15 (a): rank {r['rank']} past {TP_SERVE_REL} or under {TP_ALIGNED} "
+                 f"aligned ({aligned[r['rank']]:.4f}): {e}")
+    for r in ranks:
+        want = {"vit_attention": r["n_global"], "ms_deform_attn": r["n_msda"], "msda_reduce": 0,
+                "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
+        for i, s in enumerate(r["serve"]):
+            if s["launches"] != want:
+                fail(f"tp 15 (a): rank {r['rank']} request {i} launched "
+                     f"{s['launches']}, expected {want}")
+    log(f"[tp] 15 (a): bf16 requests at tp = 2 (2 gloo ranks on one card), ms by rank "
+        f"{[[round(s['ms'], 1) for s in r['serve']] for r in ranks]} (first includes warm-up); "
+        f"K-A ms a request by CUDA events "
+        f"{[[round(s['ka_ms'], 4) for s in r['serve']] for r in ranks]} "
+        f"({ranks[0]['n_global']} launches at BH = 8), K-B "
+        f"{[[round(s['kb_ms'], 4) for s in r['serve']] for r in ranks]} "
+        f"({ranks[0]['n_msda']} launches); collectives a request "
+        f"{ranks[0]['serve'][-1]['collectives']}; peak "
+        f"{[round(r['serve_peak_gib'], 2) for r in ranks]} GiB; card {card}")
+    # (a')
+    qs = [r["r50_encoder_q"] for r in ranks]
+    if qs != [R50_S - R50_S // 2, R50_S // 2]:
+        fail(f"tp 15 (a'): the R50 encoder's queries by rank {qs}, expected "
+             f"{R50_S - R50_S // 2} and {R50_S // 2}")
+    log(f"[tp] 15 (a'): the R50 predictor under shard_tokens: encoder queries by rank {qs} of "
+        f"{R50_S}")
+    # (b) and (c): the f32 steps
+    def worst_errs(g: dict) -> dict:
+        rel_pos = [v for k, v in g.items() if ".attn.rel_pos_" in k]
+        out = {"grad": max(g.values()), "grad_median": float(np.median(list(g.values())))}
+        return {**out, "rel_pos_grad": max(rel_pos)} if rel_pos else out
+
+    twin_worst = worst_errs(twin["grad_errs"])
+    limits = {"r50": {"term": PAR_TERM_RTOL, "grad_median": PAR_GRAD_MEDIAN_RTOL,
+                      "grad": PAR_GRAD_RTOL},
+              "vith": {"term": PAR_TERM_RTOL,
+                       **{k: TP_TWIN_FACTOR * v for k, v in twin_worst.items()}}}
+    log(f"[tp] 15 (c): the round-off twin, one process's f32 ViT-H step on images scaled by "
+        f"1 + 2^-22 against one process's: loss terms {twin['term']:.3e}, gradients' median "
+        f"{twin_worst['grad_median']:.3e} and largest {twin_worst['grad']:.3e}, the rel-pos "
+        f"tables' largest {twin_worst['rel_pos_grad']:.3e}; assignments differing "
+        f"{twin['assign_mismatch']}")
+    f32_worst = {"vith_twin": twin_worst}
+    for name, part, what in (("r50", "b", "R50 step"), ("vith", "c", "ViT-H step at batch 1")):
+        for r in ranks:
+            tr = r["train_f32"][name]
+            g = tr["grad_errs"]
+            worst = {"term": max(term_rel_errors(tr["terms"], one_terms[name]).values()),
+                     **worst_errs(g)}
+            f32_worst.setdefault(name, []).append(worst)
+            lim = limits[name]
+            log(f"[tp] 15 ({part}): rank {r['rank']}, one f32 {what} at tp = 2 with "
+                f"shard_tokens (TF32 off) against one process's, picks, matches and two-stage "
+                f"choices replayed: loss terms {worst['term']:.3e} (limit {lim['term']:.0e}), "
+                f"gradients' median {worst['grad_median']:.3e} (limit {lim['grad_median']:.2e}) "
+                f"and largest {worst['grad']:.3e} (limit {lim['grad']:.2e}) over {len(g)} tensors"
+                + (f", the {sum('.attn.rel_pos_' in k for k in g)} rel-pos tables' largest "
+                   f"{worst['rel_pos_grad']:.3e} (limit {lim['rel_pos_grad']:.2e})"
+                   if "rel_pos_grad" in worst else "")
+                + f"; assignments differing {tr['assign_mismatch']}")
+            over = {k: v for k, v in worst.items() if v > lim.get(k, float("inf"))}
+            if over or tr["assign_mismatch"]:
+                fail(f"tp 15 ({part}): past its limits {lim}: {over}, "
+                     f"{tr['assign_mismatch']} assignments differing")
+            if name == "vith" and sum(".attn.rel_pos_" in k for k in g) != 2 * VITH_BLOCKS:
+                fail(f"tp 15 (c): {sum('.attn.rel_pos_' in k for k in g)} rel-pos tables' "
+                     f"gradients held, expected {2 * VITH_BLOCKS}")
+    for r in ranks:
+        for i, s in enumerate(r["r50_per_step"]):
+            got = {k: s["launches"][k] for k in ("ms_deform_attn", "ms_deform_attn_bwd")}
+            if got != {"ms_deform_attn": 21, "ms_deform_attn_bwd": 21}:
+                fail(f"tp 15 (b): rank {r['rank']} step {i} launched {got}")
+    if ranks[0]["r50_replicated"] != ranks[1]["r50_replicated"]:
+        fail("tp 15 (b): the ranks' replicated parameters differ")
+    if ranks[0]["r50_digest"] != ranks[1]["r50_digest"] or tp1_digest != ranks[0]["r50_digest"]:
+        fail(f"tp 15 (b): the tp = 2 state's whole tensors "
+             f"{[r['r50_digest'][:12] for r in ranks]} and their checkpoint "
+             f"restored at tp = 1 ({tp1_digest[:12]}) differ")
+    log(f"[tp] 15 (b): {TP_R50_STEPS} bf16 R50 steps at tp = 2, ms a step by rank "
+        f"{[[round(s['ms'], 1) for s in r['r50_per_step']] for r in ranks]}, total loss "
+        f"{[round(x, 4) for x in ranks[0]['r50_total_loss']]}, collectives a step "
+        f"{ranks[0]['r50_per_step'][-1]['collectives']}, {ranks[0]['r50_n_sharded']} sharded "
+        f"tensors; replicated parameters bit-identical after each step; K-B and K-D 21 a step "
+        f"a rank; the checkpoint written at tp = 2 restores at tp = 1 bit for bit; peak "
+        f"{[round(r['r50_peak_gib'], 2) for r in ranks]} GiB")
+    # (c)
+    for r in ranks:
+        v = r["vith"]
+        got = {k: v["launches"][k] for k in v["want"]}
+        if got != v["want"] or not np.isfinite(v["loss"]):
+            fail(f"tp 15 (c): rank {r['rank']} launched {got}, expected "
+                 f"{v['want']}; loss {v['loss']}")
+    if ranks[0]["vith"]["replicated"] != ranks[1]["vith"]["replicated"]:
+        fail("tp 15 (c): the ranks' replicated parameters differ")
+    log(f"[tp] 15 (c): one ViT-H step at tp = 2 with shard_tokens, batch {TP_VITH_BATCH} on "
+        f"each rank: ms by rank "
+        f"{[round(r['vith']['ms'], 1) for r in ranks]} (the first step), peak "
+        f"{[round(r['vith']['peak_gib'], 2) for r in ranks]} GiB a rank, launches a rank "
+        f"{ranks[0]['vith']['launches']} (exact), loss {ranks[0]['vith']['loss']:.4f}, "
+        f"grad norm {ranks[0]['vith']['grad_norm']:.4f}; spawn to join {spawn_s:.1f} s; "
+        f"card {card}")
+    record = {"serve_ms": [[s["ms"] for s in r["serve"]] for r in ranks],
+              "serve_ka_ms": [[s["ka_ms"] for s in r["serve"]] for r in ranks],
+              "serve_kb_ms": [[s["kb_ms"] for s in r["serve"]] for r in ranks],
+              "serve_launches": ranks[0]["serve"][-1]["launches"],
+              "serve_f32_rel_err": errs, "serve_f32_aligned": aligned,
+              "train_f32_worst": f32_worst,
+              "r50_ms_per_step": [[s["ms"] for s in r["r50_per_step"]] for r in ranks],
+              "r50_launches": ranks[0]["r50_per_step"][-1]["launches"],
+              "vith_launches": ranks[0]["vith"]["launches"],
+              "vith_peak_gib": [r["vith"]["peak_gib"] for r in ranks],
+              "vith_ms": [r["vith"]["ms"] for r in ranks]}
+    if failures:
+        raise AssertionError(f"phase 15: {len(failures)} checks failed: {failures}")
+    return (record, [s for r in ranks for s in r["ka"]], [s for r in ranks for s in r["kb"]],
+            [s for r in ranks for s in r["kd"]], [s for r in ranks for s in r["ke"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -3271,6 +3831,9 @@ def main() -> int:
             dev, card, pipe_root, vit_train)
     finally:
         shutil.rmtree(pipe_root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_rec, tp_ka, tp_kb, tp_kd, tp_ke = phase_tensor_parallel(dev, card)
     # ViT-H at 1024x1024: 32 blocks, 8 of them windowed (ViTDet's
     # window_block_indexes), so 24 global blocks at N = 4096 with rel-pos. Each
     # must take K-A, again under vit_remat, and K-E for its gradient: counted
@@ -3281,13 +3844,13 @@ def main() -> int:
     if vit_got != vit_want:
         raise AssertionError(f"ViT-H train step launched {vit_got} of K-A and K-E, expected "
                              f"{vit_want}")
-    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka + par_ka + last_ka)
+    check_coverage("K-A", vit_cases, serve_ka + train_ka + vit_ka + par_ka + last_ka + tp_ka)
     check_msda_coverage(msda_cases, [s for s in list(kb_per_request) + predict_shapes + train_kb
                                      + vit_kb + pipe_kb + ov_kb + bb_kb + br_kb + par_kb
-                                     + pair_kb + last_kb if s])
+                                     + pair_kb + last_kb + tp_kb if s])
     check_coverage("K-D", bwd_cases, train_kd + vit_kd + pipe_kd + br_kd + par_kd + pair_kd
-                   + last_kd)
-    check_coverage("K-E", vit_bwd_cases, vit_ke + par_ke + last_ke)
+                   + last_kd + tp_kd)
+    check_coverage("K-E", vit_bwd_cases, vit_ke + par_ke + last_ke + tp_ke)
     # every K-E launch of the ViT-H step on the wgmma design
     from hipie_torch.ops.vit_attention import vit_attention_bwd_design
 
@@ -3347,6 +3910,11 @@ def main() -> int:
                 par_vith["runs"]["nccl"]["per_step"][-1]["launches"][r["name"]])
         if r["name"] in par_pair["per_step"]:
             r["launches_per_gloo_rank_step"] = par_pair["per_step"][r["name"]]
+    for r in records:
+        if r["name"] in tp_rec["serve_launches"]:
+            r["launches_per_tp2_rank_request"] = tp_rec["serve_launches"][r["name"]]
+            r["launches_per_tp2_rank_r50_step"] = tp_rec["r50_launches"][r["name"]]
+            r["launches_per_tp2_rank_vit_huge_step"] = tp_rec["vith_launches"][r["name"]]
     for name in ("swin_large_coco_panoptic", "convnext_large_coco_panoptic", "vit_huge_bf16_mu"):
         for r in records:
             if r["name"] in last[name]["per_step"]:

@@ -16,6 +16,8 @@ inference_on_dataset + comm.gather). Their shares then go to the main process
 confusion counts, and the few numbers an image of PQ and RefCOCO, which it adds
 in record order, since their float sums depend on the order. It computes the
 metrics, the ones one process computes to the bit, and broadcasts them.
+Under tensor parallelism the ranks of a model group predict the same images
+together; only the first of them sends its share.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from hipie_torch.evaluation.seg_eval import (
     RefCOCOEvaluator,
     SemSegEvaluator,
 )
-from hipie_torch.parallel.mesh import data_rank, data_size
+from hipie_torch.parallel.mesh import data_rank, data_size, model_rank
 from hipie_torch.parallel.multihost import (broadcast_from_main, gather_to_main,
                                              is_main_process)
 
@@ -41,6 +43,14 @@ def _shard(records: Iterable[Dict[str, Any]], max_images: Optional[int]):
     pairs among them: every data_size()-th, from its rank on."""
     records = list(records)[:max_images] if max_images is not None else list(records)
     return records, [(i, records[i]) for i in range(data_rank(), len(records), data_size())]
+
+
+def _gather_shares(share: Any) -> Optional[List[Any]]:
+    """The data group's shares on the main process (``gather_to_main``); a
+    model group's later ranks, which hold the same images' results, send
+    none."""
+    parts = gather_to_main(share if model_rank() == 0 else None)
+    return None if parts is None else [p for p in parts if p is not None]
 
 
 def _in_record_order(parts: Iterable[List[Tuple[int, Any]]]) -> List[Any]:
@@ -132,7 +142,7 @@ def evaluate_detection_dataset(
     elapsed = time.time() - start
 
     main = is_main_process()
-    shares = gather_to_main((n_here, None if main else {k: ev.share() for k, ev in
+    shares = _gather_shares((n_here, None if main else {k: ev.share() for k, ev in
                                                          evaluators.items()},
                              pan_stats, None if main else sem_eval))
     out: Optional[Dict[str, float]] = None
@@ -183,7 +193,7 @@ def evaluate_refcoco_dataset(predictor, records, max_images=None):
             entry = (RefCOCOEvaluator.image_stats(inst["masks"][0], gt_mask),
                      RefCOCOEvaluator.image_stats(pb, gb))
         stats.append((i, entry))
-    parts = gather_to_main(stats)
+    parts = _gather_shares(stats)
     out = None
     if parts is not None:
         entries = _in_record_order(parts)
@@ -247,7 +257,7 @@ def evaluate_semseg_dataset(predictor, records, metadata=None,
             gt = np.where(gt == 0, np.int64(eff_ignore), gt - 1)
         ev.add_image(result["sem_seg"], gt)
     elapsed = time.time() - start
-    parts = gather_to_main((len(mine), None if is_main_process() else ev))
+    parts = _gather_shares((len(mine), None if is_main_process() else ev))
     out = None
     if parts is not None:
         for _, other in parts[1:]:

@@ -105,7 +105,7 @@ class SwinBlock(nn.Module):
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = SwinAttention(dim, num_heads, window_size)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = ViTMlp(dim, int(dim * mlp_ratio))
+        self.mlp = ViTMlp(dim, int(dim * mlp_ratio), tensor_parallel=False)
 
     def forward(self, x: torch.Tensor, masks: Optional[torch.Tensor] = None):
         """x (B, H, W, C); masks (2, B) drop-path keep masks, or None."""

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from hipie_torch.layers import gelu, maybe_checkpoint, nchw_to_nhwc, nhwc_to_nchw
 from hipie_torch.ops.vit_attention import vit_global_attention
+from hipie_torch.parallel.tensor import TPLayout, copy_to_model, ffn, row_linear
 from hipie_torch.utils.rng import Keys, batch_uniform
 
 VIT_VARIANTS = {
@@ -158,6 +159,14 @@ def drop_path(y: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> tor
 
 
 class ViTAttention(nn.Module):
+    """Under tensor parallelism (``tp`` > 1, set by
+    ``hipie_torch.parallel.tensor.shard_module_``) the module holds its rank's
+    heads of q, k and v (qkv column-parallel) and proj's matching input
+    columns (row-parallel); the rel-pos tables stay whole, and each rank's
+    gradient of them is its heads' part."""
+
+    tp = 1
+
     def __init__(self, dim: int, num_heads: int, use_rel_pos: bool = True,
                  input_size: Tuple[int, int] = (14, 14)):
         super().__init__()
@@ -169,12 +178,15 @@ class ViTAttention(nn.Module):
         if use_rel_pos:
             self.rel_pos_h = nn.Parameter(torch.zeros(2 * input_size[0] - 1, hd))
             self.rel_pos_w = nn.Parameter(torch.zeros(2 * input_size[1] - 1, hd))
+        self.tp_layout = TPLayout({"qkv": 3}, ("proj",),
+                                  ("rel_pos_h", "rel_pos_w") if use_rel_pos else ())
 
     def forward(self, x, global_attn: bool):
         b, h, w, c = x.shape
-        nh = self.num_heads
-        hd = c // nh
-        qkv = self.qkv(x.reshape(b, h * w, c)).reshape(b, h * w, 3, nh, hd)
+        nh = self.num_heads // self.tp
+        hd = c // self.num_heads
+        x = x.reshape(b, h * w, c)
+        qkv = self.qkv(x if self.tp == 1 else copy_to_model(x)).reshape(b, h * w, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2).reshape(b * nh, h * w, hd) for i in range(3))
         if global_attn and use_kernel_attention(q.dtype, self.use_rel_pos, h * w):
             # kernels K-A / K-E; the bias coefficients are q contracted with the tables
@@ -192,18 +204,24 @@ class ViTAttention(nn.Module):
                                               (h, w), (h, w))
             attn = attn.float().softmax(-1).to(q.dtype)
             out = torch.einsum("bqk,bkd->bqd", attn, v)
-        out = out.reshape(b, nh, h * w, hd).transpose(1, 2).reshape(b, h, w, c)
-        return self.proj(out)
+        out = out.reshape(b, nh, h * w, hd).transpose(1, 2).reshape(b, h, w, nh * hd)
+        return self.proj(out) if self.tp == 1 else row_linear(self.proj, out)
 
 
 class ViTMlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    """fc1 column- and fc2 row-parallel under tensor parallelism, where
+    ``tensor_parallel`` (JAX's rules shard the ViT's MLPs, not Swin's)."""
+
+    tp = 1
+
+    def __init__(self, dim: int, hidden: int, tensor_parallel: bool = True):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tp_layout = TPLayout({"fc1": 1}, ("fc2",)) if tensor_parallel else None
 
     def forward(self, x):
-        return self.fc2(gelu(self.fc1(x)))
+        return ffn(self.fc1, self.fc2, x, self.tp, act=gelu)
 
 
 class ViTBlock(nn.Module):

@@ -212,7 +212,9 @@ class HIPIEDetector(nn.Module):
         outputs["mask_feats"] = mask_feats
         if not train:
             ctrl = self.controller(hs[-1])
-            ref2 = t["inter_references"][-2][..., :2]
+            # the last layer's input references (JAX's [-2] clamps to 0 at one layer)
+            refs = t["inter_references"]
+            ref2 = refs[max(refs.shape[0] - 2, 0)][..., :2]
             scale = torch.stack([image_sizes[:, 1], image_sizes[:, 0]], -1).float()
             outputs["pred_masks"] = dynamic_mask_with_coords(
                 mask_feats, ref2 * scale[:, None, :], ctrl, self.weight_nums, self.bias_nums,

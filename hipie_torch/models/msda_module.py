@@ -7,6 +7,13 @@ reference points. Locations and weights are f32; the sampled output is cast to
 the compute dtype before output_proj. ``msda_method`` picks the sampling core
 as the JAX package's ``HIPIE_MSDA_METHOD`` does: "fused" (kernel K-B) or
 "flat4" (quad-table gather + kernel K-C).
+
+Under sequence parallelism (``tokens``: this rank's share of the encoder's
+tokens, which are both the queries and the value) the value projection and
+its pad masking run on the share, and the (B, S, M, D) value table is gathered
+whole over the model group; the sampling then takes the rank's queries
+against all S tokens. The gather's backward sums the ranks' partial value
+gradients.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from hipie_torch.ops.ms_deform_attn import MSDA_METHODS, ms_deform_attn
+from hipie_torch.parallel.tensor import gather_tokens
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -51,16 +59,18 @@ class MSDeformAttn(nn.Module):
         nn.init.zeros_(self.attention_weights.bias)
 
     def forward(self, query, reference_points, value, spatial_shapes: Sequence[Tuple[int, int]],
-                padding_mask: Optional[torch.Tensor] = None):
+                padding_mask: Optional[torch.Tensor] = None, tokens=None):
         """query (B, Q, C); reference_points (B, Q, L, 2|4) in [0, 1]; value (B, S, C);
-        padding_mask (B, S) True = pad. Returns (B, Q, C)."""
+        padding_mask (B, S) True = pad; under ``tokens`` value and padding_mask
+        hold the rank's share of S. Returns (B, Q, C)."""
         b, q, _ = query.shape
-        s = value.shape[1]
         m, n_levels, p = self.n_heads, self.n_levels, self.n_points
         v = self.value_proj(value)
         if padding_mask is not None:
             v = v.masked_fill(padding_mask[..., None], 0.0)
-        v = v.reshape(b, s, m, self.d_model // m)
+        if tokens is not None:
+            v = gather_tokens(v, tokens)
+        v = v.reshape(b, v.shape[1], m, self.d_model // m)
         offsets = self.sampling_offsets(query).reshape(b, q, m, n_levels, p, 2).float()
         weights = self.attention_weights(query).reshape(b, q, m, n_levels * p).float()
         weights = weights.softmax(-1).reshape(b, q, m, n_levels, p)

@@ -50,9 +50,15 @@ from hipie_torch.models.heads import FeatureResizer, agg_lang_feat
 from hipie_torch.models.msda_module import MSDeformAttn
 from hipie_torch.models.text.bert import BertLayer
 from hipie_torch.parallel.mesh import global_sum
+from hipie_torch.parallel.tensor import (TPLayout, ffn, gather_tokens_replicated, split_tokens,
+                                         token_shards)
 from hipie_torch.utils.misc import get_valid_ratio, inverse_sigmoid, sine_position_embedding_1d
 
 Shapes = Tuple[Tuple[int, int], ...]
+
+# the deformable layers' FFN under tensor parallelism: linear1 column-, linear2
+# row-parallel
+FFN_LAYOUT = TPLayout({"linear1": 1}, ("linear2",))
 
 
 def encoder_reference_points(spatial_shapes: Shapes, valid_ratios: torch.Tensor) -> torch.Tensor:
@@ -71,6 +77,8 @@ def encoder_reference_points(spatial_shapes: Shapes, valid_ratios: torch.Tensor)
 
 
 class DeformableEncoderLayer(nn.Module):
+    tp = 1
+
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
                  msda_method: str = "fused"):
         super().__init__()
@@ -79,14 +87,28 @@ class DeformableEncoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        self.tp_layout = FFN_LAYOUT
 
-    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask):
-        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask)
+    def forward(self, src, pos, reference_points, spatial_shapes, padding_mask, tokens=None):
+        """src, pos (B, S, C) (the rank's share under ``tokens``), with its
+        reference points and pad mask."""
+        src2 = self.self_attn(src + pos, reference_points, src, spatial_shapes, padding_mask,
+                              tokens)
         src = self.norm1(src + src2)
-        return self.norm2(src + self.linear2(F.relu(self.linear1(src))))
+        return self.norm2(src + ffn(self.linear1, self.linear2, src, self.tp, tokens))
+
+    def token_local_parameters(self):
+        """The parameters that see only the rank's tokens under SP."""
+        out = (list(self.self_attn.parameters()) + list(self.norm1.parameters())
+               + list(self.norm2.parameters()))
+        if self.tp > 1:
+            return out + [self.linear2.bias]
+        return out + list(self.linear1.parameters()) + list(self.linear2.parameters())
 
 
 class DeformableDecoderLayer(nn.Module):
+    tp = 1
+
     def __init__(self, d_model: int, d_ffn: int, n_levels: int, n_heads: int, n_points: int,
                  msda_method: str = "fused"):
         super().__init__()
@@ -97,6 +119,7 @@ class DeformableDecoderLayer(nn.Module):
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
+        self.tp_layout = FFN_LAYOUT
 
     def forward(self, tgt, query_pos, reference_points, src, spatial_shapes, src_padding_mask,
                 self_attn_mask=None):
@@ -105,7 +128,7 @@ class DeformableDecoderLayer(nn.Module):
         tgt2 = self.cross_attn(tgt + query_pos, reference_points, src, spatial_shapes,
                                src_padding_mask)
         tgt = self.norm1(tgt + tgt2)
-        return self.norm3(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + ffn(self.linear1, self.linear2, tgt, self.tp))
 
 
 class _VLLayer(nn.Module):
@@ -117,6 +140,8 @@ class _VLLayer(nn.Module):
 
 
 class VLEncoder(nn.Module):
+    SHARDS_TOKENS = True            # the encoder shard_tokens splits (not MaskDINO's own)
+
     def __init__(self, c: TransformerConfig, lang_dim: int, msda_method: str = "fused",
                  lang_heads: int = 12, lang_intermediate: int = 3072):
         super().__init__()
@@ -136,7 +161,10 @@ class VLEncoder(nn.Module):
         else:
             self.lang_layers = None
 
-    def forward(self, memory, l_hidden, pos, enc_ref, spatial_shapes, mask_flat, lang_masks):
+    def forward(self, memory, l_hidden, pos, enc_ref, spatial_shapes, mask_flat, lang_masks,
+                tokens=None):
+        """memory, pos, enc_ref and mask_flat hold the rank's share of the
+        tokens under ``tokens`` (sequence parallelism)."""
         lang_bias = None
         if self.lang_layers is not None:
             lang_bias = torch.where(lang_masks[:, None, None, :] > 0,
@@ -146,19 +174,24 @@ class VLEncoder(nn.Module):
             lang = self.lang_layers[i] if self.lang_layers is not None else None
             if vl is None and lang is None:
                 memory = maybe_checkpoint(self.remat, layer, memory, pos, enc_ref, spatial_shapes,
-                                          mask_flat)
+                                          mask_flat, tokens)
                 continue
 
             def step(memory, l_hidden, layer=layer, vl=vl, lang=lang):
                 if vl is not None:
-                    memory, l_hidden = vl(memory, l_hidden, lang_masks)
-                memory = layer(memory, pos, enc_ref, spatial_shapes, mask_flat)
+                    memory, l_hidden = vl(memory, l_hidden, lang_masks, tokens)
+                memory = layer(memory, pos, enc_ref, spatial_shapes, mask_flat, tokens)
                 if lang is not None:
                     l_hidden = lang(l_hidden, lang_bias)
                 return memory, l_hidden
 
             memory, l_hidden = maybe_checkpoint(self.remat, step, memory, l_hidden)
         return memory, l_hidden
+
+    def token_local_parameters(self):
+        """The parameters that see only the rank's tokens under SP."""
+        return ([p for layer in self.layers for p in layer.token_local_parameters()]
+                + [p for vl in self.vl_layers for p in vl.b_attn.token_local_parameters()])
 
 
 class DINODecoder(nn.Module):
@@ -248,8 +281,17 @@ class VLDeformableTransformer(nn.Module):
         valid_ratios = torch.stack(valid_ratios, 1)
 
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
-        memory, l_hidden = self.encoder(src_flat, lang_hidden.to(dtype), pos_flat, enc_ref,
-                                        spatial_shapes, mask_flat, lang_masks)
+        # sequence parallelism: the encoder on this rank's share of the tokens
+        tokens = token_shards(src_flat.shape[1]) if c.shard_tokens else None
+        if tokens is None:
+            memory, l_hidden = self.encoder(src_flat, lang_hidden.to(dtype), pos_flat, enc_ref,
+                                            spatial_shapes, mask_flat, lang_masks)
+        else:
+            memory, l_hidden = self.encoder(
+                split_tokens(src_flat, tokens), lang_hidden.to(dtype),
+                split_tokens(pos_flat, tokens), tokens.local(enc_ref), spatial_shapes,
+                tokens.local(mask_flat), lang_masks, tokens)
+            memory = gather_tokens_replicated(memory, tokens)
 
         lang_pool = agg_lang_feat(l_hidden, lang_masks)
         bg_lang = None

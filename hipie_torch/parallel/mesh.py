@@ -1,17 +1,19 @@
-"""Data parallelism across GPUs: the process group, the counts a step shares
-across it, and the gradient all-reduce.
+"""Data and tensor parallelism across GPUs: the process group and its
+(dp, tp) grid, the counts a step shares across the data axis, and the
+gradient all-reduce.
 
 Counterpart of hipie_tpu/parallel/mesh.py. JAX runs one SPMD program over a
 ("data", "model") mesh: the batch is split over "data" and XLA psums the
-gradients. The port runs one process per card, as the reference's
-detectron2 launch does, and makes the data axis explicit:
+gradients; the TP rules shard the big matmuls over "model". The port runs one
+process per card, as the reference's detectron2 launch does, and makes both
+axes explicit:
 
   * ``init_distributed`` joins the process group (NCCL on the cards; gloo only
     when the caller names it: on the CPU, or for two ranks on one card) and
     sets the rank's device; ``launch`` runs an entry point on N local ranks
     (the reference's launch.py), or on the ranks torchrun started;
   * ``global_count`` / ``global_max`` give a step the counts over the global
-    batch: a loss normaliser is the global count divided by the world size
+    batch: a loss normaliser is the global count divided by the data group's size
     (DETR's rule), so that the mean of the ranks' gradients is the global
     batch's gradient; ``count_unit`` is one global count in those units, the
     floor a normaliser clamps to;
@@ -19,13 +21,22 @@ detectron2 launch does, and makes the data axis explicit:
     pools over the whole batch (language-derived bg queries, shared by every
     image);
   * ``reduce_gradients`` is XLA's psum over "data": a bucketed all-reduce of
-    the trainable gradients after the backward, divided by the world size;
+    the trainable gradients after the backward, divided by the group's size;
   * ``broadcast_module`` gives every rank rank 0's parameters and buffers.
 
+``create_mesh(dp, tp)`` lays the world out as JAX's mesh does,
+``reshape(dp, tp)`` with a rank's model peers adjacent: rank = d * tp + m. The
+data group holds the ranks of one model index m (they see different images),
+the model group those of one data index d (they see the same images and hold
+different shards of the TP-sharded parameters, hipie_torch/parallel/tensor.py).
+Every function above runs on the data group, so that TP does not multiply the
+batch; ``model_rank``, ``model_size`` and ``model_group`` name the other axis.
+Without ``create_mesh`` the data group is the whole world and there is no
+model axis.
+
 Every function is the identity when no process group is initialised, so the
-single-process step runs exactly as before. Tensor and sequence parallelism
-(the mesh's "model" axis) are not ported: ``create_mesh(tp>1)`` raises.
-``COLLECTIVES`` counts the collectives issued, by kind.
+single-process step runs exactly as before. ``COLLECTIVES`` counts the
+collectives run, by kind.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ import os
 import socket
 from collections import Counter
 from datetime import timedelta
-from typing import Any, Callable, Iterable, List, Optional
+from typing import Any, Callable, Iterable, List, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -92,7 +103,8 @@ def init_distributed(backend: Optional[str] = None, init_method: Optional[str] =
 
 
 def shutdown_distributed() -> None:
-    """Leave the process group (a no-op without one)."""
+    """Leave the process group (a no-op without one) and forget its mesh."""
+    _GRID.update(data=None, model=None)
     if dist.is_initialized():
         dist.destroy_process_group()
 
@@ -144,25 +156,81 @@ def launch(fn: Callable[[Any, torch.device], Any], num_ranks: int = 1, dist_url:
     return None
 
 
-def create_mesh(dp: int = -1, tp: int = 1):
-    """The data-parallel group of ``dp`` ranks (-1: all of them): the process
-    group, or None in a single process. Tensor parallelism (``tp`` > 1) waits
-    for a measurement that asks for it (ROADMAP A5) and raises."""
-    if tp != 1:
-        raise NotImplementedError(f"tensor parallelism (tp={tp}) is not ported (ROADMAP A5): "
-                                  f"the port is data-parallel only")
-    n = data_size()
-    if dp not in (-1, n):
-        raise ValueError(f"create_mesh: dp={dp}, but the process group has {n} ranks")
-    return dist.group.WORLD if dist.is_initialized() else None
+class Mesh(NamedTuple):
+    """The rank's two groups of a (dp, tp) grid; ``model`` is None at tp = 1."""
+    data: Any
+    model: Any
+    dp: int
+    tp: int
+
+
+# the groups create_mesh made: None is the whole world for "data", no axis for "model"
+_GRID = {"data": None, "model": None}
+
+
+def create_mesh(dp: int = -1, tp: int = 1) -> Optional[Mesh]:
+    """The (dp, tp) grid of the process group (``dp`` -1: world // tp), or None
+    in a single process. Every rank must call it, with the same arguments (each
+    subgroup is made by all ranks). Raises where tp does not divide the world,
+    dp * tp is not the world, or tp > 1 has no process group to run on."""
+    if tp < 1:
+        raise ValueError(f"create_mesh: tp={tp} < 1")
+    if not dist.is_initialized():
+        if tp != 1:
+            raise RuntimeError(f"create_mesh: tp={tp} needs a process group of tp ranks "
+                               f"(init_distributed first); one process holds no shards")
+        if dp not in (-1, 1):
+            raise ValueError(f"create_mesh: dp={dp}, but there is no process group")
+        return None
+    n = dist.get_world_size()
+    check_grid(n, tp)
+    if dp not in (-1, n // tp):
+        raise ValueError(f"create_mesh: dp={dp} x tp={tp}, but the process group has {n} ranks")
+    dp = n // tp
+    data = model = None
+    if tp > 1:
+        rank = dist.get_rank()
+        for d in range(dp):             # model groups: one data index, adjacent ranks
+            g = dist.new_group(list(range(d * tp, (d + 1) * tp)))
+            model = g if rank // tp == d else model
+        for m in range(tp):             # data groups: one model index
+            g = dist.new_group(list(range(m, n, tp)))
+            data = g if rank % tp == m else data
+    _GRID.update(data=data, model=model)
+    return Mesh(data if data is not None else dist.group.WORLD, model, dp, tp)
+
+
+def check_grid(n_ranks: int, tp: int) -> None:
+    """Raise, before any rank starts, where tp cannot lay out ``n_ranks``."""
+    if tp < 1 or n_ranks % tp:
+        raise ValueError(f"create_mesh: tp={tp} does not divide the {n_ranks} ranks")
+
+
+def model_group():
+    """The tensor-parallel group (None: no model axis)."""
+    return _GRID["model"]
 
 
 def data_rank() -> int:
-    return dist.get_rank() if dist.is_initialized() else 0
+    return dist.get_rank(_GRID["data"]) if dist.is_initialized() else 0
 
 
 def data_size() -> int:
-    return dist.get_world_size() if dist.is_initialized() else 1
+    return dist.get_world_size(_GRID["data"]) if dist.is_initialized() else 1
+
+
+def model_rank() -> int:
+    return dist.get_rank(_GRID["model"]) if _GRID["model"] is not None else 0
+
+
+def model_size() -> int:
+    return dist.get_world_size(_GRID["model"]) if _GRID["model"] is not None else 1
+
+
+def _data_src() -> int:
+    """The global rank of the data group's first rank."""
+    g = _GRID["data"]
+    return 0 if g is None else dist.get_global_rank(g, 0)
 
 
 def count_unit() -> float:
@@ -170,8 +238,8 @@ def count_unit() -> float:
     return 1.0 / data_size()
 
 
-def _all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    dist.all_reduce(x, op=op)
+def _all_reduce(x: torch.Tensor, op=dist.ReduceOp.SUM, group: Any = "data") -> torch.Tensor:
+    dist.all_reduce(x, op=op, group=_GRID["data"] if group == "data" else group)
     COLLECTIVES["all_reduce"] += 1
     return x
 
@@ -252,8 +320,8 @@ def _buckets(tensors: List[torch.Tensor]) -> Iterable[List[torch.Tensor]]:
 
 @torch.no_grad()
 def reduce_gradients(params: List[torch.nn.Parameter]) -> int:
-    """The mean of the ranks' ``.grad`` on every rank, in place; returns the
-    collectives issued (0 without a group).
+    """The mean of the data group's ``.grad`` on every rank, in place; returns
+    the collectives run (0 without a group).
 
     A has-gradient flag per parameter is summed first: a parameter no rank
     has a gradient for keeps ``None`` everywhere, and one some ranks lack gets
@@ -285,15 +353,16 @@ def reduce_gradients(params: List[torch.nn.Parameter]) -> int:
 
 @torch.no_grad()
 def broadcast_module(module: torch.nn.Module) -> int:
-    """Rank 0's parameters and buffers on every rank, in place; returns the
-    collectives issued (0 without a group)."""
+    """The data group's first rank's parameters and buffers on every rank of
+    the data group, in place (under TP each model index keeps its shards);
+    returns the collectives run (0 without a group)."""
     if not dist.is_initialized():
         return 0
     tensors = [t for t in list(module.parameters()) + list(module.buffers()) if t.numel()]
     count = 0
     for run in _buckets(tensors):
         flat = torch.cat([t.detach().reshape(-1) for t in run])
-        dist.broadcast(flat, 0)
+        dist.broadcast(flat, _data_src(), group=_GRID["data"])
         COLLECTIVES["broadcast"] += 1
         torch._foreach_copy_(run, [f.view_as(t) for f, t in zip(flat.split(
             [t.numel() for t in run]), run)])

@@ -23,6 +23,8 @@ from hipie_torch.data.prompts import PromptSpec, build_prompt_spec, grounding_pr
 from hipie_torch.data.transforms import pad_to_bucket, resize_bilinear, resize_shortest_edge
 from hipie_torch.models.hipie import HIPIEModel, InferenceResult, hipie_inference
 from hipie_torch.models.text.tokenizer import WordPieceTokenizer
+from hipie_torch.parallel.mesh import model_size
+from hipie_torch.parallel.tensor import shard_module_, tp_plan
 
 
 def parse_def_string(defs: Sequence[str]) -> Tuple[List[str], List[bool]]:
@@ -52,7 +54,11 @@ class HIPIEPredictor:
     results through ``clip_scorer`` (``postprocess_clip.CLIPScorer``: the
     frozen CLIP towers and the per-label-set text-embedding cache); without
     one, random-init towers with the toy CLIP tokenizer are built, and that is
-    printed."""
+    printed.
+
+    Under a model axis (``create_mesh(tp=...)``) a whole model is cut to this
+    rank's shard (``shard_module_``); the model group's ranks then call the
+    predictor together, on the same image."""
 
     def __init__(self, cfg: HIPIEConfig, model: HIPIEModel, tokenizer: WordPieceTokenizer,
                  bucket: Tuple[int, int] = (800, 1216), device="cuda", clip_scorer=None):
@@ -62,6 +68,8 @@ class HIPIEPredictor:
                                "on the CPU")
         self.cfg = cfg
         self.model = model.to(self.device)
+        if model_size() > 1 and not tp_plan(self.model):
+            shard_module_(self.model)       # under a model axis: this rank's shard
         self.tok = tokenizer
         self.bucket = bucket
         self.clip_scorer = clip_scorer

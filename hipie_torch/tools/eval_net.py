@@ -5,7 +5,7 @@ Trainer.test + inference_on_dataset + the evaluator zoo):
 
     python -m hipie_torch.tools.eval_net --config-file configs/overfit_tiny.yaml \\
         --weights run/model_0001500.pth --dataset coco_panoptic_train [--device cpu] \\
-        [--num-gpus N] [--dist-url tcp://host:port] [model.clip.enabled True ...]
+        [--num-gpus N] [--tp T] [--dist-url tcp://host:port] [model.clip.enabled True ...]
 
 The model is HIPIEModel(cfg.model) with random weights from ``cfg.seed``,
 then ``--weights`` (a HIPIE state_dict under the reference's names, or a
@@ -17,7 +17,9 @@ and, for panoptic datasets, PQ.
 ``--num-gpus N`` (or torchrun) shards the dataset over N ranks, as train_net
 does: each predicts every N-th image and every rank computes the metrics of
 one process from the gathered predictions (hipie_torch/evaluation/
-evaluator.py); rank 0 prints them. ``--tp`` raises above 1.
+evaluator.py); rank 0 prints them. ``--tp T`` shards the model over T
+adjacent ranks, which predict the same images (hipie_torch/parallel/
+tensor.py); the images are shared over the N / T data ranks.
 """
 
 from __future__ import annotations
@@ -47,11 +49,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     """Evaluate as the arguments say; returns the metrics (None where the ranks
     ran in processes of their own)."""
-    from hipie_torch.parallel.mesh import create_mesh, launch
+    from hipie_torch.parallel.mesh import launch
+    from hipie_torch.tools.train_net import check_launch
     from hipie_torch.train.step import _device_of
 
     args = parse_args(argv)
-    create_mesh(tp=args.tp)
+    check_launch(args)
     _device_of(args.device)
     return launch(evaluate, args.num_gpus, args.dist_url, args.device, args)
 
@@ -66,6 +69,7 @@ def evaluate(args: argparse.Namespace, dev) -> Dict[str, float]:
                                                   evaluate_refcoco_dataset,
                                                   evaluate_semseg_dataset)
     from hipie_torch.models.hipie import HIPIEModel
+    from hipie_torch.parallel.mesh import create_mesh
     from hipie_torch.parallel.multihost import is_main_process
     from hipie_torch.predictor import HIPIEPredictor
     from hipie_torch.tools.train_net import build_config, build_tokenizer
@@ -73,6 +77,7 @@ def evaluate(args: argparse.Namespace, dev) -> Dict[str, float]:
     from hipie_torch.train.step import TrainState, _device_of
     from hipie_torch.utils.weights import random_init_
 
+    create_mesh(tp=args.tp)
     dev = _device_of(dev)
     cfg = build_config(args.config_file, args.preset, args.opts)
     tok = build_tokenizer(args.vocab)

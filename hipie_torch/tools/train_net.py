@@ -4,7 +4,7 @@ with evaluation every ``test.eval_period`` steps.
 The port's twin of tools/train_net.py (reference projects/HIPIE/train_net.py):
 
     python -m hipie_torch.tools.train_net --config-file configs/overfit_tiny.yaml \\
-        [--resume] [--weights model.pth] [--device cuda|cpu] [--num-gpus N]
+        [--resume] [--weights model.pth] [--device cuda|cpu] [--num-gpus N] [--tp T]
         [--dist-url tcp://host:port] [KEY VALUE ...]
     torchrun --nproc-per-node N -m hipie_torch.tools.train_net ...
 
@@ -20,8 +20,11 @@ launch.py does; under torchrun each process is one rank. ``--dist-url`` is the
 ranks' rendezvous (default: a free localhost port). Each rank takes
 ``max(solver.ims_per_batch // N, 1)`` images a step (JAX's tools/train_net.py
 rule), from its shard of the loader; the step is the global batch's
-(hipie_torch/train/step.py). More ranks than cards raise. ``--tp`` (JAX's
-tensor-parallel sharding) raises above 1: the port is data-parallel only.
+(hipie_torch/train/step.py). More ranks than cards raise. ``--tp T`` shards
+the model over T adjacent ranks (hipie_torch/parallel/tensor.py), JAX's
+``--tp``: the N ranks form a (N / T, T) grid, data-parallel over N / T, and
+each rank takes ``max(solver.ims_per_batch // (N / T), 1)`` images; a T that
+does not divide N raises.
 ``--tensorboard`` mirrors the scalars to TensorBoard under ``<output_dir>/tb``
 where torch.utils.tensorboard imports, and says so in one line where it does not.
 """
@@ -57,8 +60,17 @@ def add_launch_args(p: argparse.ArgumentParser) -> None:
                    help="data-parallel ranks on this machine, one card each")
     p.add_argument("--dist-url", default="", help="the ranks' rendezvous (default: a free "
                    "localhost port)")
-    p.add_argument("--tp", type=int, default=1, help="tensor parallelism: not ported, raises "
-                   "above 1")
+    p.add_argument("--tp", type=int, default=1, help="tensor parallelism: ranks a model is "
+                   "sharded over (divides the ranks; data parallelism over the rest)")
+
+
+def check_launch(args) -> None:
+    """Raise, before any rank starts, where --tp does not divide the ranks."""
+    import os
+
+    from hipie_torch.parallel.mesh import check_grid
+
+    check_grid(int(os.environ.get("WORLD_SIZE", args.num_gpus)), args.tp)
 
 
 def build_config(config_file: str, preset: str, opts: Sequence[str]):
@@ -129,12 +141,12 @@ def _train(argv, device):
 def main(argv: Optional[Sequence[str]] = None):
     """Train as the arguments say; returns the Trainer (None where the ranks
     ran in processes of their own)."""
-    from hipie_torch.parallel.mesh import create_mesh, launch
+    from hipie_torch.parallel.mesh import launch
     from hipie_torch.train.step import _device_of
 
     argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    create_mesh(tp=args.tp)
+    check_launch(args)
     _device_of(args.device)
     return launch(_train, args.num_gpus, args.dist_url, args.device, argv)
 

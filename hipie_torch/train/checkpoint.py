@@ -17,6 +17,13 @@ loses the last good checkpoint; ``latest_checkpoint`` recovers from either.
 Resuming restores the model, the optimizer and the step, as the JAX package
 does; the trainer's random keys and the loader's sampler start again from
 ``cfg.seed`` (JAX's Trainer.train and TrainLoader do the same).
+
+Under tensor parallelism the file holds whole tensors under the reference's
+names, as orbax's global arrays do: every rank of the model group takes part
+in gathering the shards (parameters, AdamW's moments, the accumulation
+window) and the main process writes them; a restore or a weights load cuts
+them to the rank's shard. So a checkpoint written at one tp restores at any
+other.
 """
 
 from __future__ import annotations
@@ -26,6 +33,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from hipie_torch.parallel.multihost import is_main_process
+from hipie_torch.parallel.tensor import gather_shard, shard_state_dict, take_shard, tp_plan
+from hipie_torch.parallel.mesh import model_rank, model_size
 from hipie_torch.train.step import TrainState
 
 
@@ -33,14 +43,46 @@ def _path(directory: str, step: int, name: str = "") -> str:
     return os.path.join(directory, f"{name or f'model_{step:07d}'}.pth")
 
 
+def _map_sharded(opt_sd: Dict, names: List[str], plan: Dict, fn) -> Dict:
+    """``GroupedAdamW.state_dict()`` with ``fn(tensor, (dim, blocks))`` applied
+    to the moments and accumulators of the plan's parameters."""
+    adamw = opt_sd["adamw"]
+    per = {}
+    for i, st in adamw["state"].items():
+        spec = plan.get(names[i])
+        per[i] = st if spec is None else {
+            k: fn(v, spec) if torch.is_tensor(v) and v.dim() else v for k, v in st.items()}
+    acc = opt_sd["acc"]
+    if acc is not None:
+        acc = [fn(a, plan[n]) if n in plan else a for a, n in zip(acc, names)]
+    return {**opt_sd, "adamw": {**adamw, "state": per}, "acc": acc}
+
+
+def full_state(state: TrainState) -> Tuple[Dict, Dict]:
+    """The model's and the optimizer's state dicts with whole tensors (the
+    model group's shards gathered; a collective under tensor parallelism)."""
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    plan = tp_plan(state.model)
+    if plan:
+        model_sd = {k: gather_shard(v, *plan[k]) if k in plan else v
+                    for k, v in model_sd.items()}
+        opt_sd = _map_sharded(opt_sd, state.optimizer.names, plan,
+                              lambda t, spec: gather_shard(t, *spec))
+    return model_sd, opt_sd
+
+
 def save_checkpoint(directory: str, state: TrainState, step: int, name: str = "",
                     update_marker: bool = True) -> str:
-    """Save under model_{step:07d}.pth (or ``name``.pth); returns the path."""
-    os.makedirs(directory, exist_ok=True)
+    """Save under model_{step:07d}.pth (or ``name``.pth); returns the path.
+    Under tensor parallelism every rank calls it (the shards are gathered) and
+    the main process writes."""
     path = _path(directory, step, name)
+    model_sd, opt_sd = full_state(state)
+    if tp_plan(state.model) and not is_main_process():
+        return path
+    os.makedirs(directory, exist_ok=True)
     tmp = f"{path}.tmp"
-    torch.save({"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-                "step": int(step)}, tmp)
+    torch.save({"model": model_sd, "optimizer": opt_sd, "step": int(step)}, tmp)
     if os.path.exists(path):
         old = f"{path}.old"
         os.replace(path, old)
@@ -74,12 +116,20 @@ def latest_checkpoint(directory: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, state: TrainState) -> TrainState:
     """Load a save_checkpoint file into ``state`` (model strictly by name,
-    optimizer, step). The file is read to the host; ``load_state_dict`` copies
+    optimizer, step), cut to the rank's shards under tensor parallelism.
+    The file is read to the host; ``load_state_dict`` copies
     each tensor to its parameter's device (AdamW's step counts stay on the
     host, as the optimizer keeps them)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    state.model.load_state_dict(ckpt["model"], strict=True)
-    state.optimizer.load_state_dict(ckpt["optimizer"])
+    plan = tp_plan(state.model)
+    model_sd, opt_sd = ckpt["model"], ckpt["optimizer"]
+    if plan:
+        tp, rank = model_size(), model_rank()
+        model_sd = shard_state_dict(model_sd, plan)
+        opt_sd = _map_sharded(opt_sd, state.optimizer.names, plan,
+                              lambda t, spec: take_shard(t, *spec, rank, tp).clone())
+    state.model.load_state_dict(model_sd, strict=True)
+    state.optimizer.load_state_dict(opt_sd)
     state.step = int(ckpt["step"])
     return state
 
@@ -122,6 +172,9 @@ def load_weights(path: str, state: TrainState) -> Tuple[List[str], List[str]]:
     if not isinstance(sd, dict) or not sd:
         raise ValueError(f"{path}: not a state_dict")
     sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    plan = tp_plan(state.model)
+    if plan:
+        sd = shard_state_dict(sd, plan)
     copied, skipped = merge_matching(state.model, sd)
     print(f"[checkpoint] loaded {len(copied)} of {len(state.model.state_dict())} tensors "
           f"from {path}")

@@ -36,6 +36,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import torch
 
 from hipie_torch.config import SolverConfig
+from hipie_torch.parallel.tensor import sharded_mask, sum_over_model
 
 _FROZEN_STAGE_RE = re.compile(r"\.backbone\.(stem|res2)\.")
 
@@ -102,11 +103,22 @@ def group_base_lrs(cfg: SolverConfig) -> Dict[str, float]:
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float,
+                         sharded: Optional[List[bool]] = None) -> torch.Tensor:
     """Scale ``grads`` in place by min(1, max_norm / norm) (optax's rule, no
-    epsilon); returns the norm before clipping. Stays on the device."""
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g.float())
-                                                 for g in grads]))
+    epsilon); returns the norm before clipping. Stays on the device.
+
+    ``sharded`` marks the gradients of tensor-parallel shards: the norm is the
+    whole model's, their squares summed over the model group and the
+    replicated ones' counted once."""
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    if sharded is None or not any(sharded):
+        norm = torch.linalg.vector_norm(norms)
+    else:
+        mask = torch.tensor(sharded, device=norms.device)
+        sq = norms.square()
+        sq_sharded = sum_over_model(torch.where(mask, sq, 0.0).sum())
+        norm = (sq_sharded + torch.where(mask, 0.0, sq).sum()).sqrt()
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -224,6 +236,9 @@ class GroupedAdamW:
             if p.requires_grad:
                 named[self.labels[name]].append(p)
         self.params = [p for g in self.base_lrs for p in named[g]]
+        by_id = {id(p): n for n, p in model.named_parameters()}
+        self.names = [by_id[id(p)] for p in self.params]
+        self.sharded = sharded_mask(model, self.params)
         groups = [{"params": named[g], "lr": self.schedules[g](0), "group": g}
                   for g in self.base_lrs if named[g]]
         kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
@@ -249,7 +264,7 @@ class GroupedAdamW:
                 return None
             grads = self._acc
             self._micro = 0
-        norm = clip_by_global_norm_(grads, self.cfg.clip_norm)
+        norm = clip_by_global_norm_(grads, self.cfg.clip_norm, self.sharded)
         for p, g in zip(self.params, grads):
             p.grad = g
         for group in self.opt.param_groups:

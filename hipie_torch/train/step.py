@@ -38,6 +38,14 @@ queries pool the global batch's prompts, and ``reduce_gradients`` averages
 the gradients between the backward and the optimizer ("allreduce"), so that
 every rank takes the update one process takes on the global batch. Without a
 process group none of this runs.
+
+Tensor parallelism (hipie_torch/parallel/tensor.py): ``create_train_state``
+cuts the model to the rank's shard of the model group; the ranks of a model
+group take the same images and draws (both follow the data group). Before
+the data group's average, ``reduce_model_gradients`` makes the model group's
+replicated gradients one: under ``shard_tokens`` the parameters that saw only
+the rank's tokens are summed over the group, the others taken from its first
+rank. Clipping takes the whole model's norm.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from hipie_torch.losses.criterion import (Targets, apply_weight_dict, criterion_
 from hipie_torch.models.dn import prepare_cdn
 from hipie_torch.models.mask_head import dynamic_conv_param_sizes
 from hipie_torch.parallel.mesh import gather_batch, reduce_gradients, shard_rows
+from hipie_torch.parallel.tensor import reduce_model_gradients, shard_module_
 from hipie_torch.train.bg_lang import prepare_bg_lang_queries
 from hipie_torch.train.optimizer import GroupedAdamW
 from hipie_torch.utils.rng import Keys
@@ -259,7 +268,9 @@ def create_train_state(cfg: HIPIEConfig, seed: Optional[int] = None, device="cud
     """A HIPIEModel built for training (``train=True``) on ``device`` with
     random weights from a ``torch.Generator`` seeded with ``seed`` (default
     ``cfg.seed``), f32 master weights, and its optimizer. Pass ``model`` to
-    train one that exists (weights loaded from the JAX package, for example)."""
+    train one that exists (weights loaded from the JAX package, for example).
+    Under a model axis (``create_mesh(tp=...)``) the model is cut to this
+    rank's shard (``shard_module_``) before the optimizer takes it."""
     from hipie_torch.models.hipie import HIPIEModel
     from hipie_torch.utils.weights import random_init_
 
@@ -270,6 +281,7 @@ def create_train_state(cfg: HIPIEConfig, seed: Optional[int] = None, device="cud
         gen = torch.Generator(device=dev).manual_seed(cfg.seed if seed is None else seed)
         random_init_(model, gen)
     model = model.to(dev, torch.float32).train()
+    shard_module_(model)
     return TrainState(model, GroupedAdamW(cfg.solver, model), 0)
 
 
@@ -289,6 +301,8 @@ def make_train_step(cfg: HIPIEConfig, state: TrainState, task: str = "detection"
         with scope("backward"):
             total.backward()
         with scope("allreduce"):
+            reduce_model_gradients(state.model, state.optimizer.params,
+                                   cfg.model.transformer.shard_tokens)
             reduce_gradients(state.optimizer.params)
         with scope("optimizer"):
             norm = state.optimizer.step()

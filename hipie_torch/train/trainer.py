@@ -40,6 +40,7 @@ import torch
 from hipie_torch.config import HIPIEConfig
 from hipie_torch.parallel.mesh import broadcast_module
 from hipie_torch.parallel.multihost import is_main_process, reduce_metrics, sync
+from hipie_torch.parallel.tensor import tp_plan
 from hipie_torch.train.checkpoint import resume_or_load, save_checkpoint
 from hipie_torch.train.optimizer import lr_schedule
 from hipie_torch.train.step import TrainBatch, TrainState, _device_of
@@ -130,7 +131,7 @@ class Trainer:
                          last=it >= max_iter)
             self.profiler.maybe_stop(it)
             if self.checkpoints and (it % cfg.checkpoint_period == 0 or it == max_iter):
-                if self.main:
+                if self.main or tp_plan(self.state.model):     # TP: every rank gathers
                     save_checkpoint(self.cfg.output_dir, self.state, it)
                 sync()
             if self.eval_fn is not None and it % eval_period == 0:
@@ -162,9 +163,10 @@ class Trainer:
             val = float(results[metric])
             if val > self._best_metric:
                 self._best_metric = val
-                if self.main:
+                if self.main or tp_plan(self.state.model):
                     save_checkpoint(self.cfg.output_dir, self.state, it, name="model_best",
                                     update_marker=False)
+                if self.main:
                     with open(os.path.join(self.cfg.output_dir, "best_checkpoint"), "w") as f:
                         f.write(f"model_best iter={it} {metric}={val}\n")
                 sync()

@@ -93,12 +93,12 @@ print("NOJAX_OK")
 
 # A training step on the tiny config through the port's own step, optimizer,
 # criterion, matchers, CDN and Trainer, on the CPU, with the data-parallel
-# modules (hipie_torch/parallel/) imported.
+# modules (hipie_torch/parallel/, tensor parallelism too) imported.
 TRAIN = BLOCK_JAX_PACKAGE + r"""
 import dataclasses, tempfile
 import numpy as np
 import torch
-from hipie_torch.parallel import dryrun, mesh, multihost
+from hipie_torch.parallel import dryrun, mesh, multihost, tensor
 from hipie_torch.config import apply_overrides, tiny_test_config
 from hipie_torch.losses.criterion import Targets
 from hipie_torch.train.step import TrainBatch, create_train_state, make_train_step
@@ -288,7 +288,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources = _port_sources()
     assert len(sources) > 30 and REPO / "hipie_torch" / "config.py" in sources
     assert {REPO / "hipie_torch" / "parallel" / f"{m}.py"
-            for m in ("mesh", "multihost", "dryrun")} <= set(sources)
+            for m in ("mesh", "multihost", "dryrun", "tensor")} <= set(sources)
     assert {REPO / "hipie_torch" / "tools" / f"{m}.py"
             for m in ("demo", "convert_refcoco")} <= set(sources)
     bad = {str(p.relative_to(REPO)): f for p in sources if (f := _forbidden_imports(p))}

@@ -599,17 +599,18 @@ def test_world_size_one_passthroughs_equal_jax():
 
 
 def test_no_fallback_hides_the_card_or_the_group(monkeypatch):
-    """tp > 1 raises, as do more ranks than cards, NCCL without a card and a
-    rendezvous that cannot be reached."""
+    """tp > 1 without a process group raises, as do a tp that does not divide
+    the ranks, more ranks than cards, NCCL without a card and a rendezvous
+    that cannot be reached."""
     from hipie_torch.parallel import mesh
     from hipie_torch.tools import eval_net, train_net
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(RuntimeError, match="tp=2 needs a process group"):
         mesh.create_mesh(tp=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(ValueError, match="tp=2 does not divide the 1 ranks"):
         train_net.main(["--device", "cpu", "--tp", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        eval_net.main(["--device", "cpu", "--tp", "2"])
+    with pytest.raises(ValueError, match="tp=3 does not divide the 2 ranks"):
+        eval_net.main(["--device", "cpu", "--num-gpus", "2", "--tp", "3"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(RuntimeError, match="2 ranks need as many cards"):
@@ -626,7 +627,11 @@ def test_no_fallback_hides_the_card_or_the_group(monkeypatch):
 
 def test_dryrun_multigpu_prints_its_ok_line(runs):
     """One full train step at dryrun_config() on 2 gloo ranks: finite loss,
-    bit-identical rank states (the ranks check), the OK line."""
+    bit-identical rank states (the ranks check), the OK line; at 2 ranks JAX's
+    grid is tp = 2, so the SP leg (the loss within 1e-3 of the dense step's)
+    and the sharded-inference leg (against the whole model) run too."""
     _, _, (rec, printed) = runs
     assert np.isfinite(rec["loss"]) and rec["collectives"] > 0
-    assert "dryrun_multigpu OK: 2 ranks" in printed
+    assert "dryrun_multigpu OK: 2 ranks (gloo, dp=1, tp=2)" in printed
+    assert (rec["dp"], rec["tp"]) == (1, 2) and np.isfinite(rec["sp_loss"])
+    assert "dryrun_multigpu SP OK" in printed and "inference OK" in printed

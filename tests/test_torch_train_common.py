@@ -182,26 +182,20 @@ def port_model_from_jax(params, cfg=None):
     return model.train(), cfg
 
 
-def loss_records(arrays, key_seed: int = 1, **overrides):
-    """(JAX record, port record) of one training loss and its gradient from the
-    same parameters and batch, at the training config with ``overrides``.
-
-    The JAX ``loss_fn`` runs under jax.value_and_grad, the port's under
-    autograd. Both draw from the same JAX key (the port through ``JaxKeys``);
-    the mask losses' uncertainty-picked point coordinates are recorded from the
-    JAX run and replayed, and JAX's ``bilinear_sample_fastgrad`` (bf16 image
-    gradient) is swapped for its f32 twin. Each record holds "total", "grads"
-    (reference names; the port's ``p.grad``, None where none flowed), "terms"
-    (each weighted loss dict), "assign" (every matcher assignment) and, for the
-    port, "labels" (optimizer groups), "replayed" and "model"."""
+def jax_loss_record(arrays, key_seed: int = 1, **overrides):
+    """(record, params): JAX's record of one training loss and its gradient at
+    the training config with ``overrides``, from ``jax_train_state``'s
+    parameters and the key ``key_seed``, under jax.value_and_grad. The mask
+    losses' uncertainty-picked point coordinates are recorded ("coords"), and
+    JAX's ``bilinear_sample_fastgrad`` (bf16 image gradient) is swapped for its
+    f32 twin. The record holds "total", "grads" (reference names), "terms"
+    (each weighted loss dict), "assign" (every matcher assignment) and
+    "coords"."""
     import jax
 
     import hipie_tpu.losses.criterion as jcrit
     import hipie_tpu.ops.bilinear as jbil
     import hipie_tpu.train.step as jstep
-    import hipie_torch.losses.criterion as tcrit
-    import hipie_torch.train.step as tstep
-    from hipie_torch.train.optimizer import freeze_
     from hipie_torch.utils.export import export_hipie_checkpoint, export_lang_layers
 
     jmodel, params, jcfg = jax_train_state(arrays, **overrides)
@@ -240,10 +234,29 @@ def loss_records(arrays, key_seed: int = 1, **overrides):
          jbil.bilinear_sample_fastgrad) = saved
     cfg = train_config(**overrides)
     grads_np = to_numpy_tree(grads)["params"]
-    want = {"total": float(total), **rec,
-            "grads": {**export_hipie_checkpoint(grads_np, cfg), **export_lang_layers(grads_np, cfg)}}
+    return {"total": float(total), **rec,
+            "grads": {**export_hipie_checkpoint(grads_np, cfg),
+                      **export_lang_layers(grads_np, cfg)}}, params
 
-    model, cfg = port_model_from_jax(params, cfg)
+
+def loss_records(arrays, key_seed: int = 1, **overrides):
+    """(JAX record, port record) of one training loss and its gradient from the
+    same parameters and batch, at the training config with ``overrides``.
+
+    The JAX record is ``jax_loss_record``'s; the port's ``loss_fn`` runs under
+    autograd from the same parameters, draws from the same JAX key (through
+    ``JaxKeys``) and replays JAX's point coordinates. Its record holds "total",
+    "grads" (the port's ``p.grad``, None where none flowed), "terms",
+    "assign", "labels" (optimizer groups), "replayed" and "model"."""
+    import jax
+
+    import hipie_torch.losses.criterion as tcrit
+    import hipie_torch.train.step as tstep
+    from hipie_torch.train.optimizer import freeze_
+
+    want, params = jax_loss_record(arrays, key_seed, **overrides)
+    key = jax.random.PRNGKey(key_seed)
+    model, cfg = port_model_from_jax(params, train_config(**overrides))
     labels = freeze_(model)
     got = {"coords": [], "terms": [], "assign": []}
     replay = list(want["coords"])
