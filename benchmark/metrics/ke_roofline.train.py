@@ -1,0 +1,13 @@
+"""ke_roofline.train (%): kernel K-E (ViT global attention backward) against its roofline: the sum of each
+launch's bound from its shapes (harness/roofline.py) over the sum of the
+device time of its kernels in the traced window."""
+
+from harness import roofline
+
+
+def setup(run):
+    roofline.install_recorders(run)
+
+
+def read(run):
+    return roofline.roofline_percent(run, "K-E")
