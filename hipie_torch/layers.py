@@ -18,13 +18,21 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from hipie_torch.utils.trace import span
+
+
+def _remat_span(fn, *args):
+    with span("model.remat"):
+        return fn(*args)
+
 
 def maybe_checkpoint(remat: bool, fn, *args):
     """fn(*args); with ``remat`` and grad enabled, under activation
     checkpointing (the JAX package's ``nn.remat``): the activations inside fn
-    are recomputed in the backward instead of kept."""
+    are recomputed in the backward instead of kept. A checkpointed call runs
+    inside a ``model.remat`` span, in the forward and again in the recompute."""
     if remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(_remat_span, fn, *args, use_reentrant=False)
     return fn(*args)
 
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from hipie_torch.losses.point_features import point_sample
 from hipie_torch.ops.box_ops import box_cxcywh_to_xyxy, box_iou, generalized_box_iou
 from hipie_torch.parallel.mesh import shard_rows
+from hipie_torch.utils.trace import count
 
 BIG = 1e5
 CHECK_EVERY = 32          # loop iterations between two convergence checks on the host
@@ -35,6 +36,7 @@ HOST_SYNCS = [0]          # convergence checks made (each a device-to-host sync)
 
 def _done(flag: torch.Tensor) -> bool:
     HOST_SYNCS[0] += 1
+    count("host_sync.matcher_done")
     return not bool(flag.item())
 
 
@@ -133,6 +135,7 @@ def auction_assignment(cost: torch.Tensor, gt_valid: torch.Tensor, eps: float = 
     prices = torch.zeros(g, qn, dtype=torch.float32, device=dev)
     owner = torch.full((g, qn), -1, dtype=torch.long, device=dev)
     assigned = torch.zeros(g, n, dtype=torch.bool, device=dev)
+    count("host_sync.auction_neg_inf")      # a blocking copy to the card
     neg_inf = torch.tensor(float("-inf"), device=dev)
     it = 0
     while it < max_iters:

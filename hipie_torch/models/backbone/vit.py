@@ -26,6 +26,7 @@ from hipie_torch.layers import gelu, maybe_checkpoint, nchw_to_nhwc, nhwc_to_nch
 from hipie_torch.ops.vit_attention import vit_global_attention
 from hipie_torch.parallel.tensor import TPLayout, copy_to_model, ffn, row_linear
 from hipie_torch.utils.rng import Keys, batch_uniform
+from hipie_torch.utils.trace import count
 
 VIT_VARIANTS = {
     # name: (embed_dim, depth, num_heads, drop_path) — reference vit.py:386-398
@@ -81,6 +82,7 @@ def resize_abs_pos(pos_embed: torch.Tensor, has_cls_token: bool, hw: Tuple[int, 
     grid = pos_embed.reshape(1, size, size, -1)
     if (size, size) != (h, w):
         dev = pos_embed.device
+        count("host_sync.pos_resize", 2)      # two blocking copies to the card
         rh = jax_resize_matrix(size, h, "cubic").to(dev)
         rw = jax_resize_matrix(size, w, "cubic").to(dev)
         grid = torch.einsum("hi,wj,bijc->bhwc", rh, rw, grid.float())
@@ -303,6 +305,7 @@ class ViTDet(nn.Module):
         if not any(blk.drop_path > 0 for blk in self.blocks):
             return None
         dev = self.pos_embed.device
+        count("host_sync.drop_path_rates")      # a blocking copy to the card
         keep = 1.0 - torch.tensor([blk.drop_path for blk in self.blocks], dtype=torch.float32,
                                   device=dev)
         u = batch_uniform(keys, (len(self.blocks), 2, batch), axis=2, device=dev)

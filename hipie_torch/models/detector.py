@@ -34,6 +34,7 @@ from hipie_torch.models.mask_head import (MaskFeatureHead, dynamic_conv_param_si
                                           dynamic_mask_with_coords)
 from hipie_torch.models.maskdino.model import MaskDINOHead
 from hipie_torch.models.transformer import VLDeformableTransformer
+from hipie_torch.utils.trace import span
 
 
 class _Joiner(nn.Module):
@@ -152,12 +153,13 @@ class HIPIEDetector(nn.Module):
         if train and not self.train_heads:
             raise ValueError("HIPIEDetector: train=True needs a model built with train=True")
         backbone = detr.backbone[0].backbone
-        if drop_path_masks is None:
-            features = backbone(images)
-        elif train:
-            features = backbone(images, drop_masks=drop_path_masks)
-        else:
-            raise ValueError("HIPIEDetector: drop_path_masks are for train=True")
+        with span("model.backbone"):
+            if drop_path_masks is None:
+                features = backbone(images)
+            elif train:
+                features = backbone(images, drop_masks=drop_path_masks)
+            else:
+                raise ValueError("HIPIEDetector: drop_path_masks are for train=True")
         srcs, masks, poses = self._project_levels(features, pad_mask)
         n_dec = c.transformer.num_decoder_layers
         dn_tgt = None
@@ -165,12 +167,13 @@ class HIPIEDetector(nn.Module):
             dn_tgt = self.label_enc(dn_labels)
             if dn_valid is not None:
                 dn_tgt = dn_tgt.masked_fill(~dn_valid[..., None], 0.0)
-        t = detr.transformer(srcs, masks, poses, lang_hidden, lang_masks,
-                             enc_class_head=detr.class_embed[str(n_dec)],
-                             enc_bbox_head=detr.bbox_embed[n_dec],
-                             bbox_heads=detr.bbox_embed[:n_dec], task=task, dn_tgt=dn_tgt,
-                             dn_refs_unact=dn_refs_unact, self_attn_mask=self_attn_mask,
-                             bg_lang_weights=bg_lang_weights)
+        with span("model.transformer"):
+            t = detr.transformer(srcs, masks, poses, lang_hidden, lang_masks,
+                                 enc_class_head=detr.class_embed[str(n_dec)],
+                                 enc_bbox_head=detr.bbox_embed[n_dec],
+                                 bbox_heads=detr.bbox_embed[:n_dec], task=task, dn_tgt=dn_tgt,
+                                 dn_refs_unact=dn_refs_unact, self_attn_mask=self_attn_mask,
+                                 bg_lang_weights=bg_lang_weights)
         hs = t["hs"]
         l_hidden = t["lang_hidden"]
         if task == "grounding":
@@ -202,49 +205,52 @@ class HIPIEDetector(nn.Module):
             if c.use_iou_head:
                 outputs["pred_boxious"] = detr.iou_head[last](hs[-1]).float()
 
-        # mask features from the first three encoder levels
-        b = t["memory"].shape[0]
-        mem_maps, start = [], 0
-        for (h, w) in t["spatial_shapes"][:3]:
-            mem_maps.append(t["memory"][:, start:start + h * w].reshape(b, h, w, -1))
-            start += h * w
-        _, mask_feats = self.mask_head(mem_maps)
-        outputs["mask_feats"] = mask_feats
-        if not train:
-            ctrl = self.controller(hs[-1])
-            # the last layer's input references (JAX's [-2] clamps to 0 at one layer)
-            refs = t["inter_references"]
-            ref2 = refs[max(refs.shape[0] - 2, 0)][..., :2]
-            scale = torch.stack([image_sizes[:, 1], image_sizes[:, 0]], -1).float()
-            outputs["pred_masks"] = dynamic_mask_with_coords(
-                mask_feats, ref2 * scale[:, None, :], ctrl, self.weight_nums, self.bias_nums,
-                c.mask_head.dynamic_mask_channels, mask_feat_stride=8,
-                mask_out_stride=c.mask_head.mask_out_stride, rel_coord=c.mask_head.use_rel_coord)
+        with span("model.masks"):
+            # mask features from the first three encoder levels
+            b = t["memory"].shape[0]
+            mem_maps, start = [], 0
+            for (h, w) in t["spatial_shapes"][:3]:
+                mem_maps.append(t["memory"][:, start:start + h * w].reshape(b, h, w, -1))
+                start += h * w
+            _, mask_feats = self.mask_head(mem_maps)
+            outputs["mask_feats"] = mask_feats
+            if not train:
+                ctrl = self.controller(hs[-1])
+                # the last layer's input references (JAX's [-2] clamps to 0 at one layer)
+                refs = t["inter_references"]
+                ref2 = refs[max(refs.shape[0] - 2, 0)][..., :2]
+                scale = torch.stack([image_sizes[:, 1], image_sizes[:, 0]], -1).float()
+                outputs["pred_masks"] = dynamic_mask_with_coords(
+                    mask_feats, ref2 * scale[:, None, :], ctrl, self.weight_nums, self.bias_nums,
+                    c.mask_head.dynamic_mask_channels, mask_feat_stride=8,
+                    mask_out_stride=c.mask_head.mask_out_stride,
+                    rel_coord=c.mask_head.use_rel_coord)
         outputs["hs"] = hs
         outputs["inter_references"] = t["inter_references"]
         outputs["init_reference"] = t["init_reference"]
 
         if c.maskdino.enabled:
-            n_cls = c.maskdino.dec_layers + 2
-            cls_heads = self.mask_dino_cls_embed
-            if not c.maskdino.shared_encoder:
-                mem_maps = None            # MaskDINO runs its own encoder
-            if not train:
-                md = self.mask_dino(features, shared_memory_levels=mem_maps)
-                md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"].to(hs.dtype),
-                                                             lang_for_cls)
-            else:
-                md = self.mask_dino(features, shared_memory_levels=mem_maps,
-                                    dn_refs_unact=maskdino_dn_refs, dn_valid=maskdino_dn_valid,
-                                    self_attn_mask=maskdino_attn_mask,
-                                    lang_pool=agg_lang_feat(l_hidden, lang_masks),
-                                    emit_embeds=True)
-                md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"], lang_for_cls)
-                md["aux"]["classes"] = [cls_heads[str(i)](x, lang_for_cls)
-                                        for i, x in enumerate(md["aux"]["classes"])]
-                # the two-stage ("interm") head takes the second-to-last projection
-                interm = md["interm_outputs"]
-                interm["pred_logits"] = cls_heads[str(n_cls - 2)](interm["pred_logits"],
+            with span("model.maskdino"):
+                n_cls = c.maskdino.dec_layers + 2
+                cls_heads = self.mask_dino_cls_embed
+                if not c.maskdino.shared_encoder:
+                    mem_maps = None            # MaskDINO runs its own encoder
+                if not train:
+                    md = self.mask_dino(features, shared_memory_levels=mem_maps)
+                    md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"].to(hs.dtype),
                                                                  lang_for_cls)
-            outputs["maskdino"] = md
+                else:
+                    md = self.mask_dino(features, shared_memory_levels=mem_maps,
+                                        dn_refs_unact=maskdino_dn_refs, dn_valid=maskdino_dn_valid,
+                                        self_attn_mask=maskdino_attn_mask,
+                                        lang_pool=agg_lang_feat(l_hidden, lang_masks),
+                                        emit_embeds=True)
+                    md["pred_logits"] = cls_heads[str(n_cls - 1)](md["pred_logits"], lang_for_cls)
+                    md["aux"]["classes"] = [cls_heads[str(i)](x, lang_for_cls)
+                                            for i, x in enumerate(md["aux"]["classes"])]
+                    # the two-stage ("interm") head takes the second-to-last projection
+                    interm = md["interm_outputs"]
+                    interm["pred_logits"] = cls_heads[str(n_cls - 2)](interm["pred_logits"],
+                                                                     lang_for_cls)
+                outputs["maskdino"] = md
         return outputs

@@ -23,6 +23,7 @@ from hipie_torch.models.postprocess import (ClassMaps, fg_instance_inference,
 from hipie_torch.models.postprocess_clip import fuse_all_probs, fuse_fg_probs
 from hipie_torch.models.text.bert import BertEncoder, parallel_det_block_mask
 from hipie_torch.models.text.frontend import encode_long_prompt, plan_chunks
+from hipie_torch.utils.trace import count, span
 
 
 class HIPIEModel(nn.Module):
@@ -55,6 +56,7 @@ class HIPIEModel(nn.Module):
         self.detr = HIPIEDetector(cfg, msda_method, train)
 
     def normalize(self, images: torch.Tensor) -> torch.Tensor:
+        count("host_sync.normalize", 2)      # two blocking copies to the images' device
         mean = torch.tensor(self.cfg.pixel_mean, dtype=torch.float32, device=images.device)
         std = torch.tensor(self.cfg.pixel_std, dtype=torch.float32, device=images.device)
         return (images.float() - mean) / std
@@ -66,22 +68,23 @@ class HIPIEModel(nn.Module):
         chunks of at most 510 tokens split at separators (``frontend``), as the
         reference's BERT wrapper does; positions after the last separator are
         zero."""
-        parallel = self.parallel_det and task == "detection"
-        if input_ids.shape[1] > self.cfg.text.max_position_embeddings:
+        with span("model.text"):
+            parallel = self.parallel_det and task == "detection"
+            if input_ids.shape[1] > self.cfg.text.max_position_embeddings:
+                if parallel:
+                    raise NotImplementedError("parallel_det with a prompt longer than "
+                                              "max_position_embeddings")
+                ids, mask = input_ids.cpu().numpy(), attn_mask.cpu().numpy()
+                return torch.cat([
+                    encode_long_prompt(self.text_encoder,
+                                       plan_chunks(ids[i], mask[i], self.sep_token_id),
+                                       ids.shape[1], input_ids.device)
+                    for i in range(ids.shape[0])])
+            block_mask = None
             if parallel:
-                raise NotImplementedError("parallel_det with a prompt longer than "
-                                          "max_position_embeddings")
-            ids, mask = input_ids.cpu().numpy(), attn_mask.cpu().numpy()
-            return torch.cat([
-                encode_long_prompt(self.text_encoder,
-                                   plan_chunks(ids[i], mask[i], self.sep_token_id),
-                                   ids.shape[1], input_ids.device)
-                for i in range(ids.shape[0])])
-        block_mask = None
-        if parallel:
-            block_mask = parallel_det_block_mask(input_ids, self.sep_token_id,
-                                                 self.cls_token_id, self.pad_token_id)
-        return self.text_encoder(input_ids, attn_mask, block_mask)
+                block_mask = parallel_det_block_mask(input_ids, self.sep_token_id,
+                                                     self.cls_token_id, self.pad_token_id)
+            return self.text_encoder(input_ids, attn_mask, block_mask)
 
     def forward(self, images, pad_mask, input_ids, lang_attn_mask, image_sizes,
                 task: str = "detection",
@@ -101,11 +104,12 @@ class HIPIEModel(nn.Module):
         hipie_torch.train.step passes them."""
         if task not in ("detection", "grounding"):
             raise ValueError(f"task must be 'detection' or 'grounding', got {task!r}")
-        x = self.normalize(images).masked_fill(pad_mask[..., None], 0.0)
-        if lang_hidden is None:
-            lang_hidden = self.encode_text(input_ids, lang_attn_mask, task)
-        return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task,
-                         train=train, bg_lang_weights=bg_lang_weights, **dn_kwargs)
+        with span("model.forward"):
+            x = self.normalize(images).masked_fill(pad_mask[..., None], 0.0)
+            if lang_hidden is None:
+                lang_hidden = self.encode_text(input_ids, lang_attn_mask, task)
+            return self.detr(x, pad_mask, lang_hidden, lang_attn_mask, image_sizes, task=task,
+                             train=train, bg_lang_weights=bg_lang_weights, **dn_kwargs)
 
 
 class InferenceResult(NamedTuple):
@@ -142,64 +146,67 @@ def hipie_inference(outputs: Dict[str, Any], maps: ClassMaps, test_cfg: TestConf
     instance scores (a pass over the fg masks, hipie_img.py:596-611) and into
     the panoptic and semantic class probabilities (a pass over the masks those
     take, :736-751). ``images01`` (1, H, W, 3) is the padded canvas in [0, 1]."""
-    i = image_index
-    n_bg = model_cfg.transformer.num_bg_queries
-    fg_start = n_bg + n_bg_lang
-    fg_logits = outputs["pred_logits"][i][fg_start:]
-    fg_boxes = outputs["pred_boxes"][i][fg_start:]
-    fg_masks = outputs["pred_masks"][i][fg_start:]
-    iou = outputs.get("pred_boxious")
-    iou_i = iou[i][fg_start:] if iou is not None else None
+    with span("post.image"):
+        i = image_index
+        n_bg = model_cfg.transformer.num_bg_queries
+        fg_start = n_bg + n_bg_lang
+        fg_logits = outputs["pred_logits"][i][fg_start:]
+        fg_boxes = outputs["pred_boxes"][i][fg_start:]
+        fg_masks = outputs["pred_masks"][i][fg_start:]
+        iou = outputs.get("pred_boxious")
+        iou_i = iou[i][fg_start:] if iou is not None else None
 
-    clip_prob = None
-    if clip_fn is not None and task == "detection":
-        fg_cls = grounding_to_od_logits(fg_logits, maps, mode="FG" if has_thing else None,
+        clip_prob = None
+        if clip_fn is not None and task == "detection":
+            fg_cls = grounding_to_od_logits(fg_logits, maps, mode="FG" if has_thing else None,
+                                            max_pool=test_cfg.max_pool_tokens)
+            clip_prob = fuse_fg_probs(fg_cls, clip_fn(images01, fg_masks[None]), clip_overlap,
+                                      maps.is_thing, iou_i, model_cfg.clip, test_cfg.transform_eval)
+
+        max_det = test_cfg.detections_per_image if task == "detection" else 1
+        inst = fg_instance_inference(fg_logits, fg_boxes, fg_masks, iou_i, maps,
+                                     max_detections=max_det,
+                                     nms_thresh=test_cfg.nms_thresh, has_thing=has_thing,
+                                     max_pool=test_cfg.max_pool_tokens, clip_prob=clip_prob)
+        if task != "detection":
+            return InferenceResult(scores=inst.scores, classes=inst.classes, boxes=inst.boxes,
+                                   mask_logits=inst.mask_logits, sem_seg=None, panoptic=None,
+                                   segment_valid=None, segment_classes=None, segment_isthing=None)
+
+        md = outputs.get("maskdino")
+        if md is not None:
+            bg_token_logits, bg_mask_logits = md["pred_logits"][i], md["pred_masks"][i]
+        else:
+            n_bg_blk = n_bg_lang if n_bg_lang > 0 else n_bg
+            bg_token_logits = outputs["pred_logits"][i][:n_bg_blk]
+            bg_mask_logits = outputs["pred_masks"][i][:n_bg_blk]
+        mode = None if (test_cfg.use_bg_for_pano or test_cfg.bg_cls_agnostic) else "BG"
+        bg_cls = grounding_to_od_logits(bg_token_logits, maps, mode=mode,
                                         max_pool=test_cfg.max_pool_tokens)
-        clip_prob = fuse_fg_probs(fg_cls, clip_fn(images01, fg_masks[None]), clip_overlap,
-                                  maps.is_thing, iou_i, model_cfg.clip, test_cfg.transform_eval)
-
-    max_det = test_cfg.detections_per_image if task == "detection" else 1
-    inst = fg_instance_inference(fg_logits, fg_boxes, fg_masks, iou_i, maps,
-                                 max_detections=max_det,
-                                 nms_thresh=test_cfg.nms_thresh, has_thing=has_thing,
-                                 max_pool=test_cfg.max_pool_tokens, clip_prob=clip_prob)
-    if task != "detection":
+        if test_cfg.use_bg_for_pano:
+            all_cls, all_masks, drop = bg_cls, bg_mask_logits, None
+        else:
+            all_cls = torch.cat([grounding_to_od_logits(fg_logits, maps, mode="FG",
+                                                        max_pool=test_cfg.max_pool_tokens), bg_cls])
+            all_masks = torch.cat([fg_masks, bg_mask_logits])
+            drop = torch.cat([~inst.keep_fg, torch.zeros(bg_cls.shape[0], dtype=torch.bool,
+                                                         device=bg_cls.device)])
+        prob = transform_probs(all_cls, temperature=test_cfg.pano_temperature,
+                               transform_eval=test_cfg.transform_eval)
+        if clip_fn is not None:
+            prob = fuse_all_probs(prob, clip_fn(images01, all_masks[None]), clip_overlap,
+                                  model_cfg.clip)
+        if drop is not None:
+            prob = prob.masked_fill(drop[:, None], 0.0)
+            all_masks = all_masks.masked_fill(drop[:, None, None], -1e4)
+        if pad_mask_s4 is not None:
+            all_masks = all_masks.masked_fill(pad_mask_s4[None], -1e4)
+        with span("post.panoptic"):
+            sem = semantic_inference(prob, all_masks)
+            p = panoptic_inference(prob, all_masks, maps.is_thing,
+                                   test_cfg.panoptic_object_mask_thresh,
+                                   test_cfg.panoptic_overlap_thresh, pad_mask=pad_mask_s4)
         return InferenceResult(scores=inst.scores, classes=inst.classes, boxes=inst.boxes,
-                               mask_logits=inst.mask_logits, sem_seg=None, panoptic=None,
-                               segment_valid=None, segment_classes=None, segment_isthing=None)
-
-    md = outputs.get("maskdino")
-    if md is not None:
-        bg_token_logits, bg_mask_logits = md["pred_logits"][i], md["pred_masks"][i]
-    else:
-        n_bg_blk = n_bg_lang if n_bg_lang > 0 else n_bg
-        bg_token_logits = outputs["pred_logits"][i][:n_bg_blk]
-        bg_mask_logits = outputs["pred_masks"][i][:n_bg_blk]
-    mode = None if (test_cfg.use_bg_for_pano or test_cfg.bg_cls_agnostic) else "BG"
-    bg_cls = grounding_to_od_logits(bg_token_logits, maps, mode=mode,
-                                    max_pool=test_cfg.max_pool_tokens)
-    if test_cfg.use_bg_for_pano:
-        all_cls, all_masks, drop = bg_cls, bg_mask_logits, None
-    else:
-        all_cls = torch.cat([grounding_to_od_logits(fg_logits, maps, mode="FG",
-                                                    max_pool=test_cfg.max_pool_tokens), bg_cls])
-        all_masks = torch.cat([fg_masks, bg_mask_logits])
-        drop = torch.cat([~inst.keep_fg, torch.zeros(bg_cls.shape[0], dtype=torch.bool,
-                                                     device=bg_cls.device)])
-    prob = transform_probs(all_cls, temperature=test_cfg.pano_temperature,
-                           transform_eval=test_cfg.transform_eval)
-    if clip_fn is not None:
-        prob = fuse_all_probs(prob, clip_fn(images01, all_masks[None]), clip_overlap,
-                              model_cfg.clip)
-    if drop is not None:
-        prob = prob.masked_fill(drop[:, None], 0.0)
-        all_masks = all_masks.masked_fill(drop[:, None, None], -1e4)
-    if pad_mask_s4 is not None:
-        all_masks = all_masks.masked_fill(pad_mask_s4[None], -1e4)
-    sem = semantic_inference(prob, all_masks)
-    p = panoptic_inference(prob, all_masks, maps.is_thing, test_cfg.panoptic_object_mask_thresh,
-                           test_cfg.panoptic_overlap_thresh, pad_mask=pad_mask_s4)
-    return InferenceResult(scores=inst.scores, classes=inst.classes, boxes=inst.boxes,
-                           mask_logits=inst.mask_logits, sem_seg=sem, panoptic=p.panoptic_seg,
-                           segment_valid=p.segment_valid, segment_classes=p.segment_classes,
-                           segment_isthing=p.segment_isthing)
+                               mask_logits=inst.mask_logits, sem_seg=sem, panoptic=p.panoptic_seg,
+                               segment_valid=p.segment_valid, segment_classes=p.segment_classes,
+                               segment_isthing=p.segment_isthing)

@@ -26,6 +26,7 @@ import torch.nn as nn
 
 from hipie_torch.ops.ms_deform_attn import MSDA_METHODS, ms_deform_attn
 from hipie_torch.parallel.tensor import gather_tokens
+from hipie_torch.utils.trace import count
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -76,6 +77,7 @@ class MSDeformAttn(nn.Module):
         weights = weights.softmax(-1).reshape(b, q, m, n_levels, p)
         ref = reference_points.float()
         if ref.shape[-1] == 2:
+            count("host_sync.msda_normalizer")      # a blocking copy to ref's device
             normalizer = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
                                       device=ref.device)
             loc = ref[:, :, None, :, None, :] + offsets / normalizer[None, None, None, :, None, :]

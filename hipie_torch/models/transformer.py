@@ -53,6 +53,7 @@ from hipie_torch.parallel.mesh import global_sum
 from hipie_torch.parallel.tensor import (TPLayout, ffn, gather_tokens_replicated, split_tokens,
                                          token_shards)
 from hipie_torch.utils.misc import get_valid_ratio, inverse_sigmoid, sine_position_embedding_1d
+from hipie_torch.utils.trace import count
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -212,6 +213,7 @@ def two_stage_proposals(spatial_shapes: Shapes, valid_ratios, mask_flat):
     """
     dev = valid_ratios.device
     props = []
+    count("host_sync.proposal_wh", len(spatial_shapes))    # a blocking copy a level
     for lvl, (h, w) in enumerate(spatial_shapes):
         gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev) + 0.5,
                                 torch.arange(w, dtype=torch.float32, device=dev) + 0.5,

@@ -66,6 +66,7 @@ from hipie_torch.parallel.tensor import reduce_model_gradients, shard_module_
 from hipie_torch.train.bg_lang import prepare_bg_lang_queries
 from hipie_torch.train.optimizer import GroupedAdamW
 from hipie_torch.utils.rng import Keys
+from hipie_torch.utils.trace import span
 
 
 class TrainBatch(NamedTuple):
@@ -89,8 +90,8 @@ class TrainState:
 
 
 # Named ranges of the step for torch.profiler (the JAX package's named scopes);
-# each costs a few microseconds when no profiler runs.
-scope = torch.profiler.record_function
+# a flag check when no profiler runs (hipie_torch/utils/trace.py).
+scope = span
 
 
 def _device_of(device) -> torch.device:

@@ -246,8 +246,8 @@ def test_train_net_and_eval_net_run_without_jax_or_host_libraries(tmp_path_facto
 
 def _port_sources():
     return sorted((REPO / "hipie_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "profile_serve.py", REPO / "msda_bench.py",
-        REPO / "vit_bwd_bench.py", REPO / "msda_bwd_bench.py"]
+        REPO / "chip_smoke.py", REPO / "msda_bench.py", REPO / "vit_bwd_bench.py",
+        REPO / "msda_bwd_bench.py"]
 
 
 def _imports(path):
@@ -282,7 +282,7 @@ def _host_lib_imports(path, rel=None):
 
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
-    """Every import statement of hipie_torch/, chip_smoke.py, profile_serve.py and
+    """Every import statement of hipie_torch/, chip_smoke.py and
     the kernel benches (msda_bench.py, vit_bwd_bench.py, msda_bwd_bench.py), at any
     depth (inside functions too), stays out of hipie_tpu, jax and flax."""
     sources = _port_sources()
