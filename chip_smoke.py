@@ -39,7 +39,9 @@ prints no result line):
     naming the design its C entry launched at each ("binned" or "atomics")
     and, for the binned one, its bins, chunks and global adds as the launch
     wrote them into its scratch (``bwd_binned_stats``), beside the atomics
-    design's adds.
+    design's adds. K-F (greedy NMS) runs NMS_CASES at the serving shape (900
+    boxes, 133 classes or none), its keep mask equal bit for bit to the plain
+    version's and its call free of syncs, timed beside the plain host loop.
  4. reference: the tiny-config slice (narrow ViT) in f32 on the card, against
     the same weights run on the CPU through the plain versions, once with
     fused MSDA and once with ``flat4``.
@@ -563,6 +565,7 @@ def phase_kernels(dev, card):
     msda_record, msda_cases = _check_msda(dev, card)
     records.append(msda_record)
     records.append(_check_msda_reduce(dev))
+    records.append(_check_nms(dev, card))
     _check_flat4(dev, rng)
     bwd_record, bwd_cases = _check_msda_bwd(dev, card)
     records.append(bwd_record)
@@ -879,6 +882,151 @@ def _check_msda_reduce(dev):
                    "library_call": "einsum"}
         del g, cw, got, want
     rec["max_abs_err"] = max_err
+    return rec
+
+
+# K-F's inputs: the serving path's NMS runs over the 900 fg queries of an image
+# (900 + 10 queries, the 10 bg ones first) with their argmax over the 133 classes.
+NMS_N = 900
+NMS_THRESH = 0.7                 # test.nms_thresh
+NMS_CASES = ("serve", "tied_scores", "duplicates", "zero_area", "all_overlap", "none_overlap",
+             "near_threshold")
+
+
+def nms_case(case: str, n: int, seed: int, with_classes: bool):
+    """K-F's inputs from ``seed`` with numpy: boxes (n, 4) xyxy f32, scores (n,)
+    f32 (an eighth of them tied), class ids (n,) int64 or None. "serve": boxes
+    around n // 20 objects with their own classes (a fifth drawn at random of
+    the 133), as a served image's fg queries give them; "tied_scores": the same
+    boxes, 3 score values; "duplicates": the second half copies the first;
+    "zero_area": a third of the boxes without width, a fifth without height;
+    "all_overlap": one box jittered by 1e-3; "none_overlap": a grid of disjoint
+    boxes; "near_threshold": pairs of a unit box and one of width ~0.7 on an
+    integer grid, each pair's IoU within 1e-6 of 0.7 (in f32 as box_ops
+    computes it), alternately above and at or below f32(0.7)."""
+    from hipie_torch.ops.box_ops import elementwise_box_iou
+
+    rng = np.random.RandomState(seed)
+    scores = rng.uniform(0, 1, n).astype(np.float32)
+    scores[rng.randint(0, n, n // 8)] = scores[0]
+    obj = rng.randint(0, max(1, n // 20), n)
+    cls = rng.randint(0, 3, n)
+    if case in ("serve", "tied_scores", "duplicates", "zero_area"):
+        centres = rng.uniform(0.1, 0.9, (max(1, n // 20), 2))[obj]
+        cxcy = centres + rng.normal(0, 0.02, (n, 2))
+        wh = rng.uniform(0.05, 0.4, (n, 2))
+        boxes = np.concatenate([cxcy - wh / 2, cxcy + wh / 2], 1)
+        obj_cls = rng.randint(0, N_CLASSES, max(1, n // 20))[obj]
+        cls = np.where(rng.uniform(0, 1, n) < 0.2, rng.randint(0, N_CLASSES, n), obj_cls)
+        if case == "tied_scores":
+            scores = scores[rng.randint(0, 3, n)]
+        elif case == "duplicates":
+            boxes[n // 2:] = boxes[:n - n // 2]
+            cls[n // 2:] = cls[:n - n // 2]
+        elif case == "zero_area":
+            boxes[::3, 2] = boxes[::3, 0]
+            boxes[1::5, 3] = boxes[1::5, 1]
+    elif case == "all_overlap":
+        boxes = np.array([0.2, 0.3, 0.6, 0.8]) + rng.normal(0, 1e-3, (n, 4))
+    elif case == "none_overlap":
+        side = int(np.ceil(np.sqrt(n)))
+        xy = np.stack(np.meshgrid(np.arange(side), np.arange(side)), -1).reshape(-1, 2)[:n]
+        xy = xy[rng.permutation(n)] / side
+        boxes = np.concatenate([xy, xy + 0.8 / side], 1)
+    elif case == "near_threshold":
+        m = (n + 1) // 2
+        side = int(np.ceil(np.sqrt(m)))
+        xy = np.stack(np.meshgrid(np.arange(side), np.arange(side)), -1).reshape(-1, 2)[:m]
+        xy = (xy - side // 2).astype(np.float32)    # below 16 up to n = 1800: ulp <= 2^-20
+        unit = torch.from_numpy(np.concatenate([xy, xy + 1], 1))
+        j = np.arange(-40, 41, dtype=np.float32)
+        x2 = (xy[:, :1] + (np.float32(0.7) + j * np.float32(5e-8))).astype(np.float32)
+        narrow = unit[:, None, :].repeat(1, len(j), 1)
+        narrow[:, :, 2] = torch.from_numpy(x2)
+        iou = elementwise_box_iou(unit[:, None, :], narrow).numpy().astype(np.float64)
+        above = (np.arange(m) % 2 == 0)[:, None]
+        miss = np.abs(iou - 0.7) + 1.0 * ((iou > np.float32(0.7)) != above)
+        pick = miss.argmin(1)
+        got = iou[np.arange(m), pick]
+        if not (np.abs(got - 0.7).max() <= 1e-6
+                and ((got > np.float32(0.7)) == above[:, 0]).all()):
+            raise AssertionError("nms_case: near_threshold pairs off 0.7 by "
+                                 f"{np.abs(got - 0.7).max()}")
+        pairs = np.stack([unit.numpy(), narrow[np.arange(m), pick].numpy()], 1)
+        boxes = pairs.reshape(-1, 4)[:n]
+    else:
+        raise ValueError(f"nms_case: unknown case {case}")
+    return (boxes.astype(np.float32), scores,
+            cls.astype(np.int64) if with_classes else None)
+
+
+def _check_nms(dev, card):
+    """K-F against the plain version at the serving shape (NMS_N boxes, 133
+    classes, f32), every NMS_CASES case with and without class ids: keep masks
+    equal bit for bit, and no sync on the card's path (the sync debug mode set
+    to raise around a call). Times at the "serve" case with classes: K-F on the
+    card alone (CUDA events around a graph of calls), a call on the host's clock
+    with its sort and launches (what a request pays), and the plain version on
+    the card's tensors (IoU on the card, the copy to the host, the host loop,
+    the copy back; host clock)."""
+    from hipie_torch import kernels
+    from hipie_torch.ops.nms import nms_keep_mask, nms_keep_mask_plain
+
+    rec = None
+    for i, case in enumerate(NMS_CASES):
+        for with_classes in (True, False):
+            boxes, scores, cls = nms_case(case, NMS_N, SEED + 200 + i, with_classes)
+            b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+            c = None if cls is None else torch.from_numpy(cls)
+            want = nms_keep_mask(b, s, c, NMS_THRESH)
+            bd, sd, cd = b.to(dev), s.to(dev), None if c is None else c.to(dev)
+            torch.cuda.synchronize()
+            before = kernels.LAUNCHES["nms"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = nms_keep_mask(bd, sd, cd, NMS_THRESH)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            got = got.cpu()
+            mismatches = int((got != want).sum())
+            classes = "133 classes" if cls is not None else "no classes"
+            log(f"[kernels] nms {case} N={NMS_N} {classes}: {int(want.sum())} kept by the plain "
+                f"version, {mismatches} entries differ (tol 0: bit-equal), launches "
+                f"{kernels.LAUNCHES['nms'] - before}")
+            if mismatches or got.dtype != torch.bool or kernels.LAUNCHES["nms"] != before + 1:
+                raise AssertionError(f"nms {case}: {mismatches} keep entries differ from the "
+                                     f"plain version's")
+            if case == "serve" and with_classes:
+                calls = 50
+                ms = cuda_time_ms(lambda: nms_keep_mask(bd, sd, cd, NMS_THRESH), calls)
+                nms_keep_mask(bd, sd, cd, NMS_THRESH)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(calls):
+                    nms_keep_mask(bd, sd, cd, NMS_THRESH)
+                torch.cuda.synchronize()
+                host_ms = 1e3 * (time.perf_counter() - t) / calls
+                nms_keep_mask_plain(bd, sd, cd, NMS_THRESH)
+                t = time.perf_counter()
+                for _ in range(5):
+                    nms_keep_mask_plain(bd, sd, cd, NMS_THRESH)
+                torch.cuda.synchronize()
+                plain_ms = 1e3 * (time.perf_counter() - t) / 5
+                pairs = NMS_N * (NMS_N - 1) / 2
+                # 14 f32 operations an IoU and its test; boxes, scores and class
+                # ids read once, the keep mask written once
+                b_ = bound(14.0 * pairs, nbytes(bd, sd, cd) + NMS_N, PEAK_F32, "f32 cores")
+                log(f"[kernels] nms serve N={NMS_N}: K-F {ms:.4f} ms on the card (sort and two "
+                    f"kernels, CUDA graph), {host_ms:.4f} ms a call on the host's clock (sort, "
+                    f"launches, synchronize); plain version {plain_ms:.3f} ms (IoU on the card, "
+                    f"two blocking copies, host loop); bound {b_['bound_ms']:.6f} ms "
+                    f"({b_['bound_unit']}: {b_['bound_flops'] / 1e6:.1f} MFLOP, "
+                    f"{b_['bound_bytes'] / 1e3:.1f} KB); card {card}")
+                rec = {"name": "nms", "route": "cuda", "source": "hipie_torch/csrc/nms.cu",
+                       "replaces": "hipie_tpu/ops/nms.py:21 (lax.scan, not Pallas)",
+                       "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, **b_,
+                       "library_ms": None, "library_call": None, "max_abs_err": 0.0,
+                       "kept": int(want.sum())}
     return rec
 
 
@@ -1329,9 +1477,10 @@ def phase_serve(dev, card):
     log(f"[serve] last request: {int(res.segment_valid.sum())} panoptic segments, "
         f"top score {res.scores[0].item():.4f}")
     want = {"vit_attention": n_global * N_REQUESTS, "ms_deform_attn": n_msda * N_REQUESTS,
-            "msda_reduce": 0, "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
+            "msda_reduce": 0, "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0,
+            "nms": N_REQUESTS}
     log(f"[serve] kernel launches {launches}, expected {want} "
-        f"({n_global} global ViT blocks and {n_msda} MSDA layers per request)")
+        f"({n_global} global ViT blocks, {n_msda} MSDA layers and one NMS per request)")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     kb_per_request = {shape: n / N_REQUESTS for shape, n in Counter(kb_shapes).items()}
@@ -1339,6 +1488,16 @@ def phase_serve(dev, card):
         f"{kb_per_request}")
     return (launches, {name: count // N_REQUESTS for name, count in launches.items()},
             kb_per_request, ka_shapes)
+
+
+def predictor_launches(n_msda: int, kernel: str = "ms_deform_attn", passes: int = 1) -> dict:
+    """Each kernel's launches in ``passes`` predictor calls of one image: the
+    model's n_msda MSDA layers on ``kernel`` (K-B, or K-C under flat4) and
+    ``hipie_inference``'s NMS on K-F, once a call."""
+    from hipie_torch import kernels
+
+    return {k: n_msda * passes if k == kernel else passes if k == "nms" else 0
+            for k in kernels.LAUNCHES}
 
 
 def _check_prediction(res, task):
@@ -1408,13 +1567,14 @@ def phase_predict(dev, card):
     calls = []
 
     def timed(name, fn, kernel="ms_deform_attn", passes=1):
-        """Times one call and checks it launched n_msda x passes of ``kernel`` alone."""
+        """Times one call and checks it launched n_msda x passes of ``kernel`` and
+        K-F once a pass alone."""
         before = dict(kernels.LAUNCHES)
         t = time.perf_counter()
         out = fn()
         calls.append((name, 1000.0 * (time.perf_counter() - t)))
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        want = {k: n_msda * passes if k == kernel else 0 for k in before}
+        want = predictor_launches(n_msda, kernel, passes)
         if delta != want:
             raise AssertionError(f"{name}: kernel launches {delta} != {want}")
         return out
@@ -1443,10 +1603,9 @@ def phase_predict(dev, card):
         raise AssertionError("part segmentation output is malformed")
     fused_launches = dict(kernels.LAUNCHES)
     n_passes = 2 + 1 + 2
-    want = {"vit_attention": 0, "ms_deform_attn": n_msda * n_passes, "msda_reduce": 0,
-            "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
+    want = predictor_launches(n_msda, passes=n_passes)
     log(f"[predict] fused: kernel launches {fused_launches}, expected {want} "
-        f"({n_msda} MSDA layers x {n_passes} model passes)")
+        f"({n_msda} MSDA layers and one NMS x {n_passes} model passes)")
     if fused_launches != want:
         raise AssertionError(f"launch counts {fused_launches} != {want}")
 
@@ -1455,8 +1614,7 @@ def phase_predict(dev, card):
                 kernel="msda_reduce")
     _check_prediction(res, "detection")
     flat4_launches = dict(kernels.LAUNCHES)
-    want = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": n_msda,
-            "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
+    want = predictor_launches(n_msda, "msda_reduce")
     log(f"[predict] flat4: kernel launches {flat4_launches}, expected {want}")
     if flat4_launches != want:
         raise AssertionError(f"launch counts {flat4_launches} != {want}")
@@ -1521,7 +1679,7 @@ def train_launches(cfg, model, img: int = IMG) -> dict:
             "vit_attention_bwd": n_ka,
             "ms_deform_attn": n_msda + (tc.num_encoder_layers + tc.num_decoder_layers
                                         if tc.remat else 0),
-            "ms_deform_attn_bwd": n_msda, "msda_reduce": 0}
+            "ms_deform_attn_bwd": n_msda, "msda_reduce": 0, "nms": 0}
 
 
 def phase_train(dev, card, cfg=None, img: int = IMG, slots: int = TRAIN_N,
@@ -2019,7 +2177,7 @@ def phase_open_vocab(dev, card, calls: int = OV_CALLS):
             torch.cuda.synchronize()
             ms = 1000.0 * (time.perf_counter() - t)
             launches = dict(kernels.LAUNCHES)
-            want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+            want = predictor_launches(n_msda)
             if launches != want:
                 raise AssertionError(f"open-vocab call {i}: kernel launches {launches} != {want}")
             if len(clip_ev) - n_clip != 2:
@@ -2185,7 +2343,7 @@ def phase_backbones(dev, card, calls: int = 2):
                 torch.cuda.synchronize()
                 times.append(1000.0 * (time.perf_counter() - t))
                 launches = dict(kernels.LAUNCHES)
-                want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+                want = predictor_launches(n_msda)
                 if launches != want:
                     raise AssertionError(f"{mc.backbone.name} call {i}: kernel launches "
                                          f"{launches} != {want}")
@@ -2285,7 +2443,7 @@ def phase_branches(dev, card, img: int = IMG, slots: int = TRAIN_N):
                 torch.cuda.synchronize()
                 times.append(1000.0 * (time.perf_counter() - t))
                 launches = dict(kernels.LAUNCHES)
-                want = {k: n_msda if k == "ms_deform_attn" else 0 for k in launches}
+                want = predictor_launches(n_msda)
                 if launches != want:
                     raise AssertionError(f"branches {name} call {i}: kernel launches {launches} "
                                          f"!= {want}")
@@ -3675,7 +3833,7 @@ def phase_tensor_parallel(dev, card):
                  f"aligned ({aligned[r['rank']]:.4f}): {e}")
     for r in ranks:
         want = {"vit_attention": r["n_global"], "ms_deform_attn": r["n_msda"], "msda_reduce": 0,
-                "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0}
+                "ms_deform_attn_bwd": 0, "vit_attention_bwd": 0, "nms": 1}
         for i, s in enumerate(r["serve"]):
             if s["launches"] != want:
                 fail(f"tp 15 (a): rank {r['rank']} request {i} launched "

@@ -6,7 +6,7 @@ that the main path went through the kernels.
 """
 
 LAUNCHES = {"vit_attention": 0, "ms_deform_attn": 0, "msda_reduce": 0, "ms_deform_attn_bwd": 0,
-            "vit_attention_bwd": 0}
+            "vit_attention_bwd": 0, "nms": 0}
 
 
 def reset_launch_counts() -> None:

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "hipie_ms_deform_attn_bwd_design": [_vp] + [_int] * 7,
     "hipie_ms_deform_attn_bwd_scratch_bytes": [_vp] + [_int] * 8 + [_vp],
     "hipie_ms_deform_attn_bwd_constants": [_vp],
+    "hipie_nms": [_vp, _vp, _vp, _int, ctypes.c_float, _vp, _vp, _vp],
+    "hipie_nms_max_boxes": [],
 }
 
 

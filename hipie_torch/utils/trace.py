@@ -17,9 +17,10 @@ The spans, from the request down (``hipie_torch/models``):
 * ``model.remat``: inside each block ``layers.maybe_checkpoint`` checkpoints,
   once in the forward and again in its recompute during the backward;
 * ``post.image`` (``hipie_inference``, one image), ``post.nms``
-  (``nms_keep_mask``: IoU, the copy to the host, the scan, the copy back),
-  ``post.nms_scan`` (the host scan alone), ``post.panoptic`` (semantic and
-  panoptic fusion).
+  (``nms_keep_mask``: on a card the score sort and K-F's launches; on the CPU
+  the plain version's IoU, copies and scan), ``post.nms_scan`` (the plain
+  version's host scan alone, so on the CPU only), ``post.panoptic`` (semantic
+  and panoptic fusion).
 
 ``train/step.py``'s ranges (``cdn``, ``forward``, ``crit_*``, ``backward``,
 ``allreduce``, ``optimizer``) are spans too: its ``scope`` is ``span``.

@@ -38,6 +38,11 @@ Inputs are made with numpy from a seed. Tolerances:
     rounds each corner weight to bf16 (2^-9 relative), and the weights of a
     (query, head) sum to at most 1, which bounds that part by 2^-9 max|value|;
     each side then rounds its output to bf16 (2^-9 relative each).
+  * K-F (greedy NMS) against the plain version on the CPU: none, the keep
+    masks must be equal. The answer is discrete and both sides compute each
+    IoU with the same f32 operations in the same order, rounded at each step
+    (the kernel forbids FMA contraction), so no rounding separates them; one
+    decision that differs can change every later one.
 """
 
 import ctypes
@@ -46,7 +51,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import check_msda, check_msda_bwd, check_vit_attention_bwd, local_locations
+from chip_smoke import (NMS_CASES, check_msda, check_msda_bwd, check_vit_attention_bwd,
+                        local_locations, nms_case, predictor_launches)
 from hipie_torch import kernels
 from hipie_torch.ops import ms_deform_attn as msda_ops
 from hipie_torch.ops.ms_deform_attn import (BLOCK_THREADS, BWD_CONSTANTS, BWD_MAX_BINS,
@@ -619,7 +625,8 @@ def _launches_per_call(pred, cats):
 def test_open_vocab_predictor_launches_kb(dev, backbone, monkeypatch):
     """The tiny open-vocab predictor on the card (a 640-token prompt encoded in
     chunks, narrow CLIP towers), on a ResNet and on narrow Swin and ConvNeXt
-    backbones: K-B once per MSDeformAttn layer a call, no other kernel."""
+    backbones: K-B once per MSDeformAttn layer a call, K-F once (the image's
+    NMS), no other kernel."""
     import hipie_torch.models.backbone.convnext as convnext
     import hipie_torch.models.backbone.swin as swin
     from hipie_torch.models.clip import CLIPText, CLIPVisual
@@ -642,8 +649,7 @@ def test_open_vocab_predictor_launches_kb(dev, backbone, monkeypatch):
     cats = [f"{w}{i}" + (":stuff" if i % 3 == 0 else "") for i in range(100)
             for w in ("person", "dog")]
     n_msda = sum(1 for m in model.modules() if type(m).__name__ == "MSDeformAttn")
-    want = {k: n_msda if k == "ms_deform_attn" else 0 for k in kernels.LAUNCHES}
-    assert _launches_per_call(pred, cats) == want
+    assert _launches_per_call(pred, cats) == predictor_launches(n_msda)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -674,3 +680,94 @@ def test_clip_masked_attention_matches_the_cpu(dev, dtype, n_mask):
     assert torch.isfinite(got).all()
     rel = ((got - want).norm() / want.norm()).item()
     assert rel <= (1e-5 if dtype == torch.float32 else 1e-2), rel
+
+
+# K-F: greedy NMS on the card against the plain version on the CPU.
+def _nms_equal(dev, boxes, scores, cls, thr=0.7):
+    from hipie_torch.ops.nms import nms_keep_mask
+
+    b, s = torch.from_numpy(boxes), torch.from_numpy(scores)
+    c = None if cls is None else torch.from_numpy(cls)
+    want = nms_keep_mask(b, s, c, thr)
+    before = kernels.LAUNCHES["nms"]
+    got = nms_keep_mask(b.to(dev), s.to(dev), None if c is None else c.to(dev), thr)
+    assert kernels.LAUNCHES["nms"] == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+    return want
+
+
+@pytest.mark.parametrize("with_classes", [True, False])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 900, 2100])
+def test_nms_kernel_matches_plain(dev, n, with_classes):
+    """Boxes around n // 20 objects (one word, a partial word, the serving N,
+    33 words), ties among the scores."""
+    want = _nms_equal(dev, *nms_case("serve", n, n, with_classes))
+    assert n < 63 or 0 < want.sum() < n
+
+
+@pytest.mark.parametrize("with_classes", [True, False])
+@pytest.mark.parametrize("case", [c for c in NMS_CASES if c != "serve"])
+def test_nms_kernel_edge_cases(dev, case, with_classes):
+    """Tied scores, duplicate boxes, zero-area boxes, all boxes overlapping,
+    none overlapping, and pairs whose IoU lies within 1e-6 of the threshold on
+    both sides of it, at the serving N."""
+    want = _nms_equal(dev, *nms_case(case, 900, 7, with_classes))
+    if case == "none_overlap":
+        assert want.all()
+    if case == "all_overlap" and not with_classes:
+        assert want.sum() == 1
+
+
+def test_nms_kernel_at_other_thresholds(dev):
+    _nms_equal(dev, *nms_case("serve", 900, 3, True), thr=0.5)
+    _nms_equal(dev, *nms_case("near_threshold", 900, 3, False), thr=0.1)
+
+
+def test_nms_kernel_does_not_sync(dev):
+    """No copy to the host and no blocking copy back: the call runs under the
+    sync debug mode set to raise."""
+    from hipie_torch.ops.nms import nms_keep_mask
+
+    boxes, scores, cls = (torch.from_numpy(x).to(dev) for x in nms_case("serve", 900, 1, True))
+    nms_keep_mask(boxes, scores, cls, 0.7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        keep = nms_keep_mask(boxes, scores, cls, 0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert keep.any()
+
+
+def test_nms_kernel_empty_launches_nothing(dev):
+    from hipie_torch.ops.nms import nms_keep_mask
+
+    before = kernels.LAUNCHES["nms"]
+    keep = nms_keep_mask(torch.zeros(0, 4, device=dev), torch.zeros(0, device=dev),
+                         torch.zeros(0, dtype=torch.long, device=dev), 0.7)
+    assert kernels.LAUNCHES["nms"] == before
+    assert keep.shape == (0,) and keep.dtype == torch.bool and keep.device.type == "cuda"
+
+
+@pytest.mark.parametrize("bad", ["boxes_f64", "boxes_bf16", "boxes_shape", "scores_shape",
+                                 "scores_int", "class_ids_f32", "class_ids_int32",
+                                 "class_ids_shape", "scores_on_cpu", "class_ids_on_cpu"])
+def test_nms_kernel_rejects(dev, bad):
+    from hipie_torch.ops.nms import nms_keep_mask
+
+    boxes, scores, cls = (torch.from_numpy(x).to(dev) for x in nms_case("serve", 100, 2, True))
+    args = {"boxes_f64": (boxes.double(), scores, cls),
+            "boxes_bf16": (boxes.bfloat16(), scores, cls),
+            "boxes_shape": (torch.cat([boxes, boxes[:, :1]], 1), scores, cls),
+            "scores_shape": (boxes, scores[:-1], cls),
+            "scores_int": (boxes, scores.long(), cls),
+            "class_ids_f32": (boxes, scores, cls.float()),
+            "class_ids_int32": (boxes, scores, cls.int()),
+            "class_ids_shape": (boxes, scores, cls[:-1]),
+            "scores_on_cpu": (boxes, scores.cpu(), cls),
+            "class_ids_on_cpu": (boxes, scores, cls.cpu())}[bad]
+    before = kernels.LAUNCHES["nms"]
+    with pytest.raises(ValueError):
+        nms_keep_mask(*args, 0.7)
+    assert kernels.LAUNCHES["nms"] == before

@@ -13,8 +13,9 @@ import torch
 
 from hipie_tpu.models import postprocess as J
 from hipie_tpu.ops.nms import nms_keep_mask as j_nms
+from chip_smoke import NMS_CASES, nms_case
 from hipie_torch.models import postprocess as T
-from hipie_torch.ops.nms import nms_keep_mask
+from hipie_torch.ops.nms import TILE, nms_keep_mask
 
 
 def _boxes(rng, n):
@@ -42,6 +43,77 @@ def test_nms_keep_mask_matches_jax(seed, with_classes):
                         None if cls is None else torch.from_numpy(cls), 0.5).numpy()
     assert 0 < want.sum() < 60
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("with_classes", [False, True])
+@pytest.mark.parametrize("n", [0, 1])
+def test_nms_keep_mask_plain_edges(n, with_classes):
+    """The plain version at N = 0 (an empty mask) and N = 1 (the box kept)."""
+    boxes = torch.tensor([[0.1, 0.2, 0.5, 0.6]])[:n]
+    cls = torch.zeros(n, dtype=torch.long) if with_classes else None
+    keep = nms_keep_mask(boxes, torch.full((n,), 0.3), cls, 0.7)
+    assert keep.dtype == torch.bool and keep.tolist() == [True] * n
+
+
+def test_nms_keep_mask_refuses_other_devices():
+    with pytest.raises(ValueError):
+        nms_keep_mask(torch.zeros(3, 4, device="meta"), torch.zeros(3, device="meta"), None, 0.7)
+
+
+def _replay_kf(boxes, scores, cls, thr):
+    """K-F's design (hipie_torch/csrc/nms.cu) in numpy: the mask kernel's words
+    (word w of row i at [w, i], bit j where column 64 w + j > i agrees in class
+    and its IoU, computed as the kernel computes it in f32 with NaN-propagating
+    max, min and clamps, exceeds f32(thr)), then the scan kernel's blocks of 64
+    rows (the chain over the diagonal words, the kept rows as the clear bits,
+    their later words ORed into ``removed``)."""
+    n = len(boxes)
+    order = torch.sort(-torch.from_numpy(scores), stable=True).indices.numpy()
+    b = boxes[order]
+    c = np.zeros(n, np.int64) if cls is None else cls[order]
+    f32 = np.float32
+    nan_max = lambda x, y: np.where((x > y) | np.isnan(x), x, y)
+    nan_min = lambda x, y: np.where((x < y) | np.isnan(x), x, y)
+    clamp = lambda x, lo: np.where(x < lo, f32(lo), x)
+    area = (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    w = clamp(nan_min(b[:, None, 2], b[None, :, 2]) - nan_max(b[:, None, 0], b[None, :, 0]), 0)
+    h = clamp(nan_min(b[:, None, 3], b[None, :, 3]) - nan_max(b[:, None, 1], b[None, :, 1]), 0)
+    inter = w * h
+    iou = inter / clamp((area[:, None] + area[None, :]) - inter, f32(1e-6))
+    assert iou.dtype == np.float32
+    over = (iou > f32(thr)) & (c[:, None] == c[None, :]) & np.triu(np.ones((n, n), bool), 1)
+    nb = -(-n // TILE)
+    words = np.zeros((nb, n), dtype=object)
+    for wd in range(nb):
+        for j in range(min(TILE, n - wd * TILE)):
+            words[wd] += over[:, wd * TILE + j].astype(object) << j
+    removed, keep = [0] * nb, np.zeros(n, bool)
+    for blk in range(nb):
+        r0, rows = blk * TILE, min(TILE, n - blk * TILE)
+        rem = removed[blk]
+        for t in range(rows):
+            if not (rem >> t) & 1:
+                rem |= words[blk, r0 + t]
+        kept = ~rem & ((1 << rows) - 1)
+        for t in range(rows):
+            keep[order[r0 + t]] = (kept >> t) & 1
+            if (kept >> t) & 1:
+                for wd in range(blk + 1, nb):
+                    removed[wd] |= words[wd, r0 + t]
+    return keep
+
+
+@pytest.mark.parametrize("with_classes", [False, True])
+@pytest.mark.parametrize("case,n", [("serve", 1), ("serve", 64), ("serve", 65), ("serve", 900)]
+                         + [(c, 300) for c in NMS_CASES])
+def test_nms_kernel_design_replayed(case, n, with_classes):
+    """K-F's arithmetic and its blocked scan, replayed on the CPU, give the
+    plain version's keep mask bit for bit (the card tests hold the kernel
+    itself to it)."""
+    boxes, scores, cls = nms_case(case, n, 11, with_classes)
+    want = nms_keep_mask(torch.from_numpy(boxes), torch.from_numpy(scores),
+                         None if cls is None else torch.from_numpy(cls), 0.7).numpy()
+    np.testing.assert_array_equal(_replay_kf(boxes, scores, cls, 0.7), want)
 
 
 def _maps(rng, c=6, L=12):
